@@ -1,0 +1,303 @@
+// Device helpers shared by the LBVH kernels in bvh_kernels.cu.
+//
+// Each is the per-ray counterpart of a helper of the Pallas kernels in
+// raytracer_tpu/render/pallas_engine.py (_ray_recips, _slab_terms,
+// _quat_rotate_tile, _box_face_hit, _intersect_instance, _occlude_instance,
+// _skip_next) and of the plain versions in render/cuda_engine.py.  Every
+// expression keeps their operation order: built with -fmad=false, each
+// operation rounds once, like the separately rounded torch ops of the plain
+// versions, so the two agree bit for bit.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace rt {
+
+// Table layouts: equal to render/cuda_engine.py (a CPU test parses these).
+constexpr int IF_BMIN = 0;
+constexpr int IF_BMAX = 3;
+constexpr int IF_POS = 6;
+constexpr int IF_QUAT = 9;
+constexpr int IF_FNRM = 19;
+constexpr int IF_WIDTH = 40;
+
+constexpr int II_TMPL_START = 0;
+constexpr int II_TRI_COUNT = 1;
+constexpr int II_WTRI_START = 2;
+constexpr int II_IS_BOX = 4;
+constexpr int II_MAT = 5;
+constexpr int II_FACE_WTRI = 8;
+constexpr int II_WIDTH = 24;
+
+constexpr int TF_A = 0;
+constexpr int TF_B = 3;
+constexpr int TF_C = 6;
+constexpr int TF_PNU = 9;
+constexpr int TF_AREA = 12;
+constexpr int TF_MAT = 13;
+constexpr int TF_NA = 16;
+constexpr int TF_NB = 19;
+constexpr int TF_NC = 22;
+constexpr int TF_WIDTH = 32;
+
+constexpr int NODE_WIDTH = 8;  // min xyz, max xyz, valid, pad
+
+constexpr float THRESHOLD = 1e-5f;
+constexpr float F32_BIG = 3.0e38f;
+constexpr float F32_NEG_BIG = -3.0e38f;
+
+struct Tables {
+  const float* __restrict__ nodes;    // [2n-1, NODE_WIDTH]
+  const int* __restrict__ ordering;   // [n], -1 for padding leaves
+  int n_leaves;
+  const float* __restrict__ inst_f;   // [N, IF_WIDTH]
+  const int* __restrict__ inst_i;     // [N, II_WIDTH]
+  const float* __restrict__ tmpl;     // [T, TF_WIDTH]
+};
+
+// torch.minimum / torch.maximum semantics: a NaN operand wins.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+struct Ray {
+  float o[3];
+  float d[3];
+  float inv[3];
+  bool par[3];
+};
+
+// _ray_recips: only EXACT zeros count as parallel axes.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
+                                        const float* __restrict__ rd, int r) {
+  Ray ray;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ray.o[k] = ro[3 * r + k];
+    ray.d[k] = rd[3 * r + k];
+    ray.par[k] = ray.d[k] == 0.0f;
+    ray.inv[k] = 1.0f / (ray.par[k] ? 1.0f : ray.d[k]);
+  }
+  return ray;
+}
+
+struct Slab {
+  float tn[3];
+  float tf[3];
+  bool inside;  // parallel-axis containment
+};
+
+// _slab_terms against box[0:6] = (min xyz, max xyz).
+__device__ __forceinline__ Slab slab_terms(const float* __restrict__ box,
+                                           const Ray& r) {
+  Slab s;
+  s.inside = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t1 = (box[k] - r.o[k]) * r.inv[k];
+    const float t2 = (box[k + 3] - r.o[k]) * r.inv[k];
+    s.tn[k] = r.par[k] ? F32_NEG_BIG : nan_min(t1, t2);
+    s.tf[k] = r.par[k] ? F32_BIG : nan_max(t1, t2);
+    s.inside = s.inside &&
+               (!r.par[k] || (r.o[k] >= box[k] && r.o[k] <= box[k + 3]));
+  }
+  return s;
+}
+
+__device__ __forceinline__ float slab_entry(const Slab& s) {
+  return nan_max(nan_max(s.tn[0], s.tn[1]), s.tn[2]);
+}
+__device__ __forceinline__ float slab_exit(const Slab& s) {
+  return nan_min(nan_min(s.tf[0], s.tf[1]), s.tf[2]);
+}
+
+// _quat_rotate_tile: rotate v by the (normalized-on-the-fly) quaternion q.
+__device__ __forceinline__ void quat_rotate(const float q[4], const float v[3],
+                                            float out[3]) {
+  const float qx = q[0], qy = q[1], qz = q[2], qw = q[3];
+  const float n2 = qx * qx + qy * qy + qz * qz + qw * qw;
+  const float s = n2 > 1e-12f ? 1.0f / n2 : 0.0f;
+  const float xx = 2.0f * qx * qx * s, yy = 2.0f * qy * qy * s,
+              zz = 2.0f * qz * qz * s;
+  const float wx = 2.0f * qw * qx * s, wy = 2.0f * qw * qy * s,
+              wz = 2.0f * qw * qz * s;
+  const float xy = 2.0f * qx * qy * s, xz = 2.0f * qx * qz * s,
+              yz = 2.0f * qy * qz * s;
+  out[0] = (1.0f - (yy + zz)) * v[0] + (xy - wz) * v[1] + (xz + wy) * v[2];
+  out[1] = (xy + wz) * v[0] + (1.0f - (xx + zz)) * v[1] + (yz - wx) * v[2];
+  out[2] = (xz - wy) * v[0] + (yz + wx) * v[1] + (1.0f - (xx + yy)) * v[2];
+}
+
+struct Best {
+  float t;
+  int tri;
+  float u, v;
+  float n[3];
+  int mat;
+};
+
+// _box_face_hit: the slab entry (or, from inside, exit) face of an
+// identity-rotation box is its closest triangle hit.  Ties pick x, y, z;
+// side_hi = (d >= 0) XOR is_entry.
+__device__ __forceinline__ bool box_face_hit(const Slab& s, const Ray& r,
+                                             const float* __restrict__ f,
+                                             const int* __restrict__ ii,
+                                             float& t_hit, int& wtri,
+                                             float n[3]) {
+  const float t_entry = slab_entry(s);
+  const float t_exit = slab_exit(s);
+  const bool hit_box = t_entry <= t_exit && s.inside;
+  const bool is_entry = t_entry >= THRESHOLD;
+  t_hit = is_entry ? t_entry : t_exit;
+  const float tx = is_entry ? s.tn[0] : s.tf[0];
+  const float ty = is_entry ? s.tn[1] : s.tf[1];
+  const bool ax_x = tx == t_hit;
+  const bool ax_y = !ax_x && ty == t_hit;
+  const float dsel = ax_x ? r.d[0] : (ax_y ? r.d[1] : r.d[2]);
+  const bool side_hi = (dsel >= 0.0f) != is_entry;
+  const int face = (ax_x ? 0 : (ax_y ? 1 : 2)) * 2 + (side_hi ? 1 : 0);
+  wtri = ii[II_FACE_WTRI + face];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) n[k] = f[IF_FNRM + 3 * face + k];
+  return hit_box && t_hit >= THRESHOLD;
+}
+
+__device__ __forceinline__ float edge_area(const float p0[3],
+                                           const float p1[3]) {
+  const float ex = p0[1] * p1[2] - p0[2] * p1[1];
+  const float ey = p0[2] * p1[0] - p0[0] * p1[2];
+  const float ez = p0[0] * p1[1] - p0[1] * p1[0];
+  return sqrtf(ex * ex + ey * ey + ez * ez);
+}
+
+struct TriHit {
+  bool ok;  // plane, barycentric and t >= THRESHOLD tests passed
+  float tt, b0, b1, b2;
+};
+
+// Plane + barycentric-area test of one template triangle, ray in the
+// instance frame (lo, ld) -- the body of the template loops.
+__device__ __forceinline__ TriHit template_tri(const float* __restrict__ row,
+                                               const float lo[3],
+                                               const float ld[3]) {
+  const float* a = row + TF_A;
+  const float* b = row + TF_B;
+  const float* c = row + TF_C;
+  const float* n = row + TF_PNU;
+  const float area = row[TF_AREA];
+  TriHit th;
+  const float denom = ld[0] * n[0] + ld[1] * n[1] + ld[2] * n[2];
+  const bool plane_ok = fabsf(denom) >= THRESHOLD;
+  th.tt = ((a[0] - lo[0]) * n[0] + (a[1] - lo[1]) * n[1] +
+           (a[2] - lo[2]) * n[2]) / (plane_ok ? denom : 1.0f);
+  float ch[3], bh[3], ah[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float h = lo[k] + th.tt * ld[k];
+    ch[k] = c[k] - h;
+    bh[k] = b[k] - h;
+    ah[k] = a[k] - h;
+  }
+  const float inv_area = 1.0f / (area > 0.0f ? area : 1.0f);
+  th.b0 = edge_area(ch, bh) * inv_area;
+  th.b1 = edge_area(ch, ah) * inv_area;
+  th.b2 = edge_area(ah, bh) * inv_area;
+  const bool inside = fabsf(th.b0 + th.b1 + th.b2 - 1.0f) <= THRESHOLD;
+  th.ok = plane_ok && inside && area > 0.0f && th.tt >= THRESHOLD;
+  return th;
+}
+
+// Ray into the instance frame: o' = q (o - p), d' = q d.
+__device__ __forceinline__ void to_local(const float* __restrict__ f,
+                                         const Ray& r, float q[4],
+                                         float lo[3], float ld[3]) {
+  float op[3];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = f[IF_QUAT + k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) op[k] = r.o[k] - f[IF_POS + k];
+  quat_rotate(q, op, lo);
+  quat_rotate(q, r.d, ld);
+}
+
+// _intersect_instance: closest-hit update of instance i (its leaf box test
+// already passed for this ray).
+__device__ __forceinline__ void intersect_instance(int i, const Slab& s,
+                                                   const Ray& r,
+                                                   const Tables& tb,
+                                                   Best& best) {
+  const float* f = tb.inst_f + i * IF_WIDTH;
+  const int* ii = tb.inst_i + i * II_WIDTH;
+  if (ii[II_IS_BOX] > 0) {
+    float t_hit, n[3];
+    int wtri;
+    if (box_face_hit(s, r, f, ii, t_hit, wtri, n) && t_hit < best.t) {
+      best.t = t_hit;
+      best.tri = wtri;
+      best.u = 1.0f / 3.0f;
+      best.v = 1.0f / 3.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) best.n[k] = n[k];
+      best.mat = ii[II_MAT];
+    }
+    return;
+  }
+  float q[4], lo[3], ld[3];
+  to_local(f, r, q, lo, ld);
+  const float qc[4] = {-q[0], -q[1], -q[2], q[3]};
+  const int start = ii[II_TMPL_START];
+  const int count = ii[II_TRI_COUNT];
+  const int wstart = ii[II_WTRI_START];
+  for (int j = 0; j < count; ++j) {
+    const float* row = tb.tmpl + (start + j) * TF_WIDTH;
+    const TriHit th = template_tri(row, lo, ld);
+    if (th.ok && th.tt < best.t) {
+      float sn[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        sn[k] = th.b0 * row[TF_NA + k] + th.b1 * row[TF_NB + k] +
+                th.b2 * row[TF_NC + k];
+      best.t = th.tt;
+      best.tri = wstart + j;
+      best.u = th.b1;
+      best.v = th.b2;
+      quat_rotate(qc, sn, best.n);
+      best.mat = static_cast<int>(row[TF_MAT]);
+    }
+  }
+}
+
+// _occlude_instance: does instance i block the ray within [THRESHOLD, max_t]?
+__device__ __forceinline__ bool occlude_instance(int i, const Slab& s,
+                                                 const Ray& r, float max_t,
+                                                 const Tables& tb) {
+  const float* f = tb.inst_f + i * IF_WIDTH;
+  const int* ii = tb.inst_i + i * II_WIDTH;
+  if (ii[II_IS_BOX] > 0) {
+    const float tmin = slab_entry(s);
+    const float tmax = slab_exit(s);
+    const float t_hit = tmin >= THRESHOLD ? tmin : tmax;
+    return tmin <= tmax && s.inside && t_hit >= THRESHOLD && t_hit <= max_t;
+  }
+  float q[4], lo[3], ld[3];
+  to_local(f, r, q, lo, ld);
+  const int start = ii[II_TMPL_START];
+  const int count = ii[II_TRI_COUNT];
+  for (int j = 0; j < count; ++j) {
+    const TriHit th = template_tri(tb.tmpl + (start + j) * TF_WIDTH, lo, ld);
+    if (th.ok && th.tt <= max_t) return true;
+  }
+  return false;
+}
+
+// _skip_next: next preorder node after v's subtree -- climb while v is a
+// right child (odd), then step to the sibling; 0 ends the walk.
+__device__ __forceinline__ int skip_next(int v) {
+  while (v > 1 && (v & 1)) v >>= 1;
+  return v == 1 ? 0 : v + 1;
+}
+
+}  // namespace rt

@@ -1,0 +1,680 @@
+"""LBVH cast and fused two-light shadow query: tables, plain versions, kernels.
+
+Counterpart of ``raytracer_tpu/render/pallas_engine.py`` for the forward
+cube-world path.  Two of its Pallas kernels run on that path, and each has
+here a hand-written CUDA kernel (``csrc/bvh_kernels.cu``), a plain batched
+PyTorch version beside it, and a wrapper that dispatches by device:
+
+* K1 ``_bvh_cast_kernel`` -> :func:`bvh_cast` / :func:`bvh_cast_reference`:
+  closest hit through the stackless implicit-heap LBVH walk; leaves run the
+  box fast path (identity-rotation box meshes) or the template triangle loop.
+* K2 ``_bvh_occlude2_kernel`` -> :func:`bvh_occlude2` /
+  :func:`bvh_occlude2_reference`: both shadow queries of a two-light round
+  in one walk.
+
+The tables keep the JAX package's layouts (``_IF_*``, ``_II_*``, ``_TF_*``)
+column for column.  The CUDA kernels walk the tree per thread (one ray each)
+instead of per 8x128 tile; votes are conservative and leaf updates use strict
+``<`` in the same preorder, so hits equal the tile walk's.  Because every
+ancestor box contains its children exactly, the per-thread walk also equals a
+flat loop over the leaves in walk order (``ordering[n-1], ..., ordering[0]``)
+gated by each ray's own leaf-box test -- which is what the plain versions do.
+
+Every comparison, select and division is written in the kernels' order so
+that the CUDA code (built with ``-fmad=false``) and the separately rounded
+torch ops give the same bits.  A torch ``c / tensor`` is ``reciprocal * c``,
+so divisions here are tensor by tensor or ``1.0 / tensor`` only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from .. import raymath as rm
+from ..accel import build_lbvh
+from ..scene import RenderConfig, Scene
+from .cast import Hit
+from .geometry import WorldGeometry
+
+F32_NEG_BIG = -3.0e38
+F32_BIG = 3.0e38
+
+# inst_f32 row layout
+_IF_BMIN = 0   # 0:3 world AABB min
+_IF_BMAX = 3   # 3:6 world AABB max
+_IF_POS = 6    # 6:9 frame position
+_IF_QUAT = 9   # 9:13 frame quaternion [x,y,z,w] (global->local)
+_IF_LMIN = 13  # 13:16 mesh-local AABB min
+_IF_LMAX = 16  # 16:19 mesh-local AABB max
+_IF_FNRM = 19  # 19:37 six world-space face normals, f = axis*2 + side
+_IF_WIDTH = 40
+
+# inst_i32 row layout
+_II_TMPL_START = 0  # first row in the template table
+_II_TRI_COUNT = 1   # triangle count
+_II_WTRI_START = 2  # world-triangle id of the instance's first triangle
+_II_VALID = 3
+_II_IS_BOX = 4      # 1 when the mesh is an identity-rotation box
+_II_MAT = 5         # material id (box meshes are single-material)
+_II_FACE_WTRI = 8   # 8:14 first world-tri id per face
+_II_FACE_WTRI2 = 14  # 14:20 second world-tri id per face
+_II_WIDTH = 24
+
+# template row layout (per mesh-local triangle)
+_TF_A = 0      # 0:3 vertex a
+_TF_B = 3      # 3:6 vertex b
+_TF_C = 6      # 6:9 vertex c
+_TF_PNU = 9    # 9:12 unit plane normal
+_TF_AREA = 12  # |cross(b-a, c-a)|
+_TF_MAT = 13   # material id as f32
+_TF_NA = 16    # 16:19 vertex normal a (mesh-local)
+_TF_NB = 19    # 19:22 vertex normal b
+_TF_NC = 22    # 22:25 vertex normal c
+_TF_WIDTH = 32
+
+_NODE_WIDTH = 8  # min xyz, max xyz, valid, pad
+
+
+@dataclass
+class SceneTables:
+    inst_f32: torch.Tensor  # [N, 40] f32
+    inst_i32: torch.Tensor  # [N, 24] i32
+    tmpl: torch.Tensor  # [T, 32] f32
+
+
+@dataclass
+class CastData:
+    """What the cast needs at run time (``prepare_pallas_cast``'s dict)."""
+
+    tables: SceneTables
+    nodes: torch.Tensor  # [2n-1, 8] f32: min, max, valid
+    ordering: torch.Tensor  # [n] i32, -1 for padding leaves
+
+    @property
+    def n_leaves(self) -> int:
+        return self.ordering.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# tables
+# ---------------------------------------------------------------------------
+
+def _detect_box_meshes(scene: Scene):
+    """Per-mesh axis-aligned-box detection.  Returns ``(is_box [M] bool,
+    mat [M] i32, face_tri [M, 6] i32, face_of [T] i32, face_tri2 [M, 6]
+    i32)`` exactly as ``pallas_engine._detect_box_meshes`` does."""
+    dev = scene.verts.device
+    T = scene.tri_v.shape[0]
+    M = scene.mesh_pos.shape[0]
+    tol = 1e-5
+    tri_v = scene.tri_v.long()
+
+    va = scene.verts[tri_v[:, 0]]
+    vb = scene.verts[tri_v[:, 1]]
+    vc = scene.verts[tri_v[:, 2]]
+    tri_rows = torch.arange(T, dtype=torch.int32, device=dev)
+    starts = scene.mesh_tri_start
+    ends = starts + scene.mesh_tri_count
+    in_mesh = ((tri_rows[None, :] >= starts[:, None])
+               & (tri_rows[None, :] < ends[:, None]))  # [M, T]
+    # argmax returns the first maximum, as jnp.argmax does
+    mesh_of = torch.argmax(in_mesh.to(torch.int32), dim=0)  # [T] i64
+
+    bmin = scene.mesh_aabb_min[mesh_of]  # [T,3]
+    bmax = scene.mesh_aabb_max[mesh_of]
+    scale = torch.clamp((bmax - bmin).amax(dim=-1, keepdim=True), min=1e-8)
+    tol_s = tol * scale
+
+    def on_corner(v):
+        lo = torch.abs(v - bmin) <= tol_s
+        hi = torch.abs(v - bmax) <= tol_s
+        return torch.all(lo | hi, dim=-1)
+
+    corners_ok = on_corner(va) & on_corner(vb) & on_corner(vc)
+
+    def plane_flags(plane):
+        return ((torch.abs(va - plane) <= tol_s)
+                & (torch.abs(vb - plane) <= tol_s)
+                & (torch.abs(vc - plane) <= tol_s))
+
+    lo_f = plane_flags(bmin)
+    hi_f = plane_flags(bmax)
+    flags = torch.stack([lo_f[:, 0], hi_f[:, 0], lo_f[:, 1], hi_f[:, 1],
+                         lo_f[:, 2], hi_f[:, 2]], -1)  # [T, 6]
+    one_face = flags.sum(dim=-1) == 1
+    face_of = torch.argmax(flags.to(torch.int32), dim=-1)  # [T] i64
+
+    na = scene.norms[tri_v[:, 0]]
+    nb = scene.norms[tri_v[:, 1]]
+    nc = scene.norms[tri_v[:, 2]]
+    faceted = (torch.all(torch.abs(na - nb) <= 1e-5, dim=-1)
+               & torch.all(torch.abs(na - nc) <= 1e-5, dim=-1))
+
+    tri_ok = corners_ok & one_face & faceted
+
+    mf = mesh_of * 6 + face_of  # [T] i64
+    i32 = torch.int32
+    counts = torch.zeros(M * 6, dtype=i32, device=dev).index_add_(
+        0, mf, tri_ok.to(i32))
+    first = torch.full((M * 6,), T, dtype=i32, device=dev).scatter_reduce_(
+        0, mf, torch.where(tri_ok, tri_rows, T), "amin", include_self=True)
+    second = torch.full((M * 6,), -1, dtype=i32, device=dev).scatter_reduce_(
+        0, mf, torch.where(tri_ok, tri_rows, -1), "amax", include_self=True)
+    counts = counts.reshape(M, 6)
+    face_tri = torch.clamp(first.reshape(M, 6), 0, max(T - 1, 0))
+    face_tri2 = torch.clamp(second.reshape(M, 6), 0, max(T - 1, 0))
+
+    # both triangles of a face must agree on the faceted normal
+    nsum = torch.zeros(M * 6, 3, dtype=torch.float32, device=dev).index_add_(
+        0, mf, torch.where(tri_ok[:, None], na, 0.0))
+    normals_agree = torch.all(
+        torch.abs((nsum * nsum).sum(dim=-1).reshape(M, 6) - 4.0) < 1e-3,
+        dim=-1)
+
+    ref_mat = scene.tri_mat[torch.clamp(starts, 0, max(T - 1, 0)).long()]
+    same_mat = torch.zeros(M, dtype=i32, device=dev).index_add_(
+        0, mesh_of, (scene.tri_mat != ref_mat[mesh_of]).to(i32)) == 0
+    all_ok = torch.zeros(M, dtype=i32, device=dev).index_add_(
+        0, mesh_of, (~tri_ok).to(i32)) == 0
+    is_box = ((scene.mesh_tri_count == 12) & all_ok
+              & torch.all(counts == 2, dim=-1) & normals_agree & same_mat)
+    return (is_box, ref_mat.to(i32), face_tri, face_of.to(i32), face_tri2)
+
+
+def build_tables(scene: Scene, geom: WorldGeometry, *,
+                 exact_uv: bool = False) -> SceneTables:
+    """The kernels' instance and template tables (``pallas_engine.
+    build_tables``).  ``exact_uv=True`` zeroes ``is_box`` so every instance
+    takes the template loop; the JAX package's ``texture_mapping`` and
+    ``box_exact_uv`` variants are not ported."""
+    n = scene.inst_pos.shape[0]
+    dev = scene.inst_pos.device
+    i32 = torch.int32
+    mesh = scene.inst_mesh.long()
+    q_i = scene.inst_rot
+    q_m = scene.mesh_rot[mesh]
+    p_i = scene.inst_pos
+    p_m = scene.mesh_pos[mesh]
+    # composed frame: v_local = q_m (q_i (v - p_i) - p_m) = q (v - p)
+    q = rm.quat_mul(q_m, q_i)
+    p = p_i + rm.quat_rotate_inv(q_i, p_m)
+
+    inst_f32 = torch.zeros(n, _IF_WIDTH, dtype=torch.float32, device=dev)
+    inst_f32[:, _IF_BMIN:_IF_BMIN + 3] = geom.aabb_min
+    inst_f32[:, _IF_BMAX:_IF_BMAX + 3] = geom.aabb_max
+    inst_f32[:, _IF_POS:_IF_POS + 3] = p
+    inst_f32[:, _IF_QUAT:_IF_QUAT + 4] = q
+    inst_f32[:, _IF_LMIN:_IF_LMIN + 3] = scene.mesh_aabb_min[mesh]
+    inst_f32[:, _IF_LMAX:_IF_LMAX + 3] = scene.mesh_aabb_max[mesh]
+
+    counts = scene.mesh_tri_count[mesh]
+    tmpl_start = scene.mesh_tri_start[mesh]
+    wtri_start = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+                            torch.cumsum(counts, 0, dtype=i32)[:-1]])
+    inst_i32 = torch.zeros(n, _II_WIDTH, dtype=i32, device=dev)
+    inst_i32[:, _II_TMPL_START] = tmpl_start
+    inst_i32[:, _II_TRI_COUNT] = counts
+    inst_i32[:, _II_WTRI_START] = wtri_start
+    inst_i32[:, _II_VALID] = 1
+
+    is_box_m, mat_m, face_tri_m, _, face_tri2_m = _detect_box_meshes(scene)
+    if exact_uv:
+        is_box_m = torch.zeros_like(is_box_m)
+    ident_rot = ((torch.abs(q[:, 0]) < 1e-6) & (torch.abs(q[:, 1]) < 1e-6)
+                 & (torch.abs(q[:, 2]) < 1e-6))
+    inst_i32[:, _II_IS_BOX] = (is_box_m[mesh] & ident_rot).to(i32)
+    inst_i32[:, _II_MAT] = mat_m[mesh]
+    w_max = max(geom.a.shape[0] - 1, 0)
+    face_wtri = torch.clamp(
+        wtri_start[:, None] + (face_tri_m[mesh] - tmpl_start[:, None]),
+        0, w_max)  # [n, 6]
+    inst_i32[:, _II_FACE_WTRI:_II_FACE_WTRI + 6] = face_wtri
+    face_wtri2 = torch.clamp(
+        wtri_start[:, None] + (face_tri2_m[mesh] - tmpl_start[:, None]),
+        0, w_max)
+    inst_i32[:, _II_FACE_WTRI2:_II_FACE_WTRI2 + 6] = face_wtri2
+    fnrm = geom.na[face_wtri.long()]  # [n, 6, 3]
+    inst_f32[:, _IF_FNRM:_IF_FNRM + 18] = fnrm.reshape(n, 18)
+
+    tri_v = scene.tri_v.long()
+    va = scene.verts[tri_v[:, 0]]
+    vb = scene.verts[tri_v[:, 1]]
+    vc = scene.verts[tri_v[:, 2]]
+    pn = rm.cross(vb - va, vc - va)
+    area = torch.sqrt(pn[:, 0] * pn[:, 0] + pn[:, 1] * pn[:, 1]
+                      + pn[:, 2] * pn[:, 2])
+    t = scene.tri_v.shape[0]
+    tmpl = torch.zeros(t, _TF_WIDTH, dtype=torch.float32, device=dev)
+    tmpl[:, _TF_A:_TF_A + 3] = va
+    tmpl[:, _TF_B:_TF_B + 3] = vb
+    tmpl[:, _TF_C:_TF_C + 3] = vc
+    tmpl[:, _TF_PNU:_TF_PNU + 3] = rm.normalize(pn)
+    tmpl[:, _TF_AREA] = area
+    tmpl[:, _TF_MAT] = scene.tri_mat.to(torch.float32)
+    tmpl[:, _TF_NA:_TF_NA + 3] = scene.norms[tri_v[:, 0]]
+    tmpl[:, _TF_NB:_TF_NB + 3] = scene.norms[tri_v[:, 1]]
+    tmpl[:, _TF_NC:_TF_NC + 3] = scene.norms[tri_v[:, 2]]
+    return SceneTables(inst_f32=inst_f32, inst_i32=inst_i32, tmpl=tmpl)
+
+
+def _use_walk(cfg: RenderConfig, n_inst: int) -> bool:
+    return cfg.pallas_traversal == "bvh" or (
+        cfg.pallas_traversal == "auto" and n_inst > 256)
+
+
+def prepare_cast(scene: Scene, geom: WorldGeometry,
+                 cfg: RenderConfig) -> CastData:
+    """Tables + LBVH nodes for the walk (``prepare_pallas_cast``).  The
+    candidate-list cull the JAX package takes at <= 256 instances is not
+    ported and raises."""
+    if cfg.pallas_kernel != "scalar":
+        raise NotImplementedError(
+            f"pallas_kernel={cfg.pallas_kernel!r} is not ported (ROADMAP.md "
+            "Queue 1 item 10: the MXU kernel K6)")
+    if cfg.edge_aware_grads:
+        raise NotImplementedError(
+            "edge_aware_grads is not ported (ROADMAP.md Queue 1 item 7: "
+            "edge-aware gradients with K1's exact_uv branch)")
+    if cfg.texture_mapping:
+        raise NotImplementedError(
+            "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
+            "ops surface and atlas sampling)")
+    if not _use_walk(cfg, scene.inst_pos.shape[0]):
+        raise NotImplementedError(
+            f"traversal {cfg.pallas_traversal!r} at "
+            f"{scene.inst_pos.shape[0]} instances selects the candidate-list "
+            "cull, which is not ported (ROADMAP.md Queue 1 item 3: the cull "
+            "with K4/K5); use pallas_traversal='bvh'")
+    tables = build_tables(scene, geom)
+    lbvh = build_lbvh(geom.aabb_min, geom.aabb_max)
+    total = 2 * lbvh.n_leaves - 1
+    nodes = torch.zeros(total, _NODE_WIDTH, dtype=torch.float32,
+                        device=geom.aabb_min.device)
+    nodes[:, 0:3] = lbvh.box_min
+    nodes[:, 3:6] = lbvh.box_max
+    nodes[:, 6] = lbvh.valid.to(torch.float32)
+    return CastData(tables=tables, nodes=nodes, ordering=lbvh.ordering)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (batched torch; the CPU path and the kernels' oracle)
+# ---------------------------------------------------------------------------
+
+def _ray_recips(d):
+    """Safe reciprocal directions: only EXACT zeros count as parallel."""
+    par = [d[:, k] == 0.0 for k in range(3)]
+    inv = [1.0 / torch.where(par[k], 1.0, d[:, k]) for k in range(3)]
+    return par, inv
+
+
+def _slab_terms(box, o, inv, par):
+    """Per-axis slab times against ``box`` ([6]: min xyz, max xyz); parallel
+    axes are unconstrained but require the origin inside that slab."""
+    tns, tfs = [], []
+    inside = None
+    for k in range(3):
+        t1 = (box[k] - o[k]) * inv[k]
+        t2 = (box[k + 3] - o[k]) * inv[k]
+        tns.append(torch.where(par[k], F32_NEG_BIG, torch.minimum(t1, t2)))
+        tfs.append(torch.where(par[k], F32_BIG, torch.maximum(t1, t2)))
+        ins = ~par[k] | ((o[k] >= box[k]) & (o[k] <= box[k + 3]))
+        inside = ins if inside is None else inside & ins
+    return tns, tfs, inside
+
+
+def _max3(x):
+    return torch.maximum(torch.maximum(x[0], x[1]), x[2])
+
+
+def _min3(x):
+    return torch.minimum(torch.minimum(x[0], x[1]), x[2])
+
+
+def _quat_rotate_tile(q, v):
+    """Rotate per-ray vectors ``v`` (3 tensors) by one quaternion ``q``
+    (4 scalars), in ``pallas_engine._quat_rotate_tile``'s order."""
+    qx, qy, qz, qw = q
+    vx, vy, vz = v
+    n2 = qx * qx + qy * qy + qz * qz + qw * qw
+    s = torch.where(n2 > 1e-12, 1.0 / n2, 0.0)
+    xx, yy, zz = 2 * qx * qx * s, 2 * qy * qy * s, 2 * qz * qz * s
+    wx, wy, wz = 2 * qw * qx * s, 2 * qw * qy * s, 2 * qw * qz * s
+    xy, xz, yz = 2 * qx * qy * s, 2 * qx * qz * s, 2 * qy * qz * s
+    rx = (1 - (yy + zz)) * vx + (xy - wz) * vy + (xz + wy) * vz
+    ry = (xy + wz) * vx + (1 - (xx + zz)) * vy + (yz - wx) * vz
+    rz = (xz - wy) * vx + (yz + wx) * vy + (1 - (xx + yy)) * vz
+    return rx, ry, rz
+
+
+def _box_face_hit(tns, tfs, inside, d, inst_f, inst_i):
+    """Closest hit of an axis-aligned box from its slab times: the entry
+    face, or the exit face from inside.  Returns ``(ok, t, wtri, normal
+    [R,3])``; ties pick x, then y, then z."""
+    t_entry = _max3(tns)
+    t_exit = _min3(tfs)
+    hit_box = (t_entry <= t_exit) & inside
+    is_entry = t_entry >= rm.THRESHOLD
+    t_hit = torch.where(is_entry, t_entry, t_exit)
+    ok = hit_box & (t_hit >= rm.THRESHOLD)
+
+    tx = torch.where(is_entry, tns[0], tfs[0])
+    ty = torch.where(is_entry, tns[1], tfs[1])
+    ax_x = tx == t_hit
+    ax_y = ~ax_x & (ty == t_hit)
+    dsel = torch.where(ax_x, d[0], torch.where(ax_y, d[1], d[2]))
+    side_hi = (dsel >= 0.0) ^ is_entry
+    axis = torch.where(ax_x, 0, torch.where(ax_y, 1, 2))
+    face = axis * 2 + side_hi.long()
+    wtri = inst_i[_II_FACE_WTRI:_II_FACE_WTRI + 6][face]
+    normal = inst_f[_IF_FNRM:_IF_FNRM + 18].reshape(6, 3)[face]
+    return ok, t_hit, wtri, normal
+
+
+def _template_tri(row, lo, ld):
+    """Plane + barycentric-area test of one template triangle in the
+    instance frame.  Returns ``(ok_geom, tt, b0, b1, b2)``; the caller adds
+    its own ``tt`` bound."""
+    a = row[_TF_A:_TF_A + 3]
+    b = row[_TF_B:_TF_B + 3]
+    c = row[_TF_C:_TF_C + 3]
+    n = row[_TF_PNU:_TF_PNU + 3]
+    area = row[_TF_AREA]
+    denom = ld[0] * n[0] + ld[1] * n[1] + ld[2] * n[2]
+    plane_ok = torch.abs(denom) >= rm.THRESHOLD
+    tt = ((a[0] - lo[0]) * n[0] + (a[1] - lo[1]) * n[1]
+          + (a[2] - lo[2]) * n[2]) / torch.where(plane_ok, denom, 1.0)
+    h = [lo[k] + tt * ld[k] for k in range(3)]
+    inv_area = 1.0 / torch.where(area > 0.0, area, 1.0)
+
+    def edge_area(p0, p1):
+        ex = p0[1] * p1[2] - p0[2] * p1[1]
+        ey = p0[2] * p1[0] - p0[0] * p1[2]
+        ez = p0[0] * p1[1] - p0[1] * p1[0]
+        return torch.sqrt(ex * ex + ey * ey + ez * ez)
+
+    ch = [c[k] - h[k] for k in range(3)]
+    bh = [b[k] - h[k] for k in range(3)]
+    ah = [a[k] - h[k] for k in range(3)]
+    b0 = edge_area(ch, bh) * inv_area
+    b1 = edge_area(ch, ah) * inv_area
+    b2 = edge_area(ah, bh) * inv_area
+    inside_t = torch.abs(b0 + b1 + b2 - 1.0) <= rm.THRESHOLD
+    ok = plane_ok & inside_t & (area > 0.0) & (tt >= rm.THRESHOLD)
+    return ok, tt, b0, b1, b2
+
+
+def _to_local(inst_f, o, d):
+    """Ray into the instance frame: o' = q (o - p), d' = q d."""
+    p = inst_f[_IF_POS:_IF_POS + 3]
+    q = inst_f[_IF_QUAT:_IF_QUAT + 4]
+    lo = _quat_rotate_tile(q, [o[k] - p[k] for k in range(3)])
+    ld = _quat_rotate_tile(q, d)
+    return q, lo, ld
+
+
+def _leaves(data: CastData):
+    """Walk-order leaves ``(flat, instance)`` with a valid node, on the
+    host (one device read per call)."""
+    n = data.n_leaves
+    order = data.ordering.cpu().tolist()
+    ok = (data.nodes[:n, 6] > 0.0).cpu().tolist()
+    return [(f, order[f]) for f in range(n - 1, -1, -1)
+            if ok[f] and order[f] >= 0]
+
+
+def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
+                       data: CastData) -> Hit:
+    """Plain version of K1: closest hit for rays ``[R, 3]``."""
+    R = ro.shape[0]
+    dev = ro.device
+    f32 = torch.float32
+    o = [ro[:, k] for k in range(3)]
+    d = [rd[:, k] for k in range(3)]
+    par, inv = _ray_recips(rd)
+    inst_f, inst_i, tmpl = (data.tables.inst_f32, data.tables.inst_i32,
+                            data.tables.tmpl)
+    is_box = (inst_i[:, _II_IS_BOX] > 0).cpu().tolist()
+    tri_info = inst_i[:, [_II_TMPL_START, _II_TRI_COUNT,
+                          _II_WTRI_START]].cpu().tolist()
+
+    bt = torch.full((R,), float("inf"), dtype=f32, device=dev)
+    btri = torch.zeros(R, dtype=torch.int32, device=dev)
+    bu = torch.zeros(R, dtype=f32, device=dev)
+    bv = torch.zeros(R, dtype=f32, device=dev)
+    bn = [torch.zeros(R, dtype=f32, device=dev),
+          torch.zeros(R, dtype=f32, device=dev),
+          torch.ones(R, dtype=f32, device=dev)]
+    bmat = torch.zeros(R, dtype=torch.int32, device=dev)
+
+    for flat, i in _leaves(data):
+        tns, tfs, inside = _slab_terms(data.nodes[flat], o, inv, par)
+        tmin = _max3(tns)
+        tmax = _min3(tfs)
+        gate = ((tmin <= tmax) & (tmax >= rm.THRESHOLD) & (tmin < bt)
+                & inside)
+        if is_box[i]:
+            ok, t_hit, wtri, nrm = _box_face_hit(tns, tfs, inside, d,
+                                                 inst_f[i], inst_i[i])
+            ok = gate & ok & (t_hit < bt)
+            bt = torch.where(ok, t_hit, bt)
+            btri = torch.where(ok, wtri, btri)
+            bu = torch.where(ok, 1.0 / 3.0, bu)
+            bv = torch.where(ok, 1.0 / 3.0, bv)
+            bn = [torch.where(ok, nrm[:, k], bn[k]) for k in range(3)]
+            bmat = torch.where(ok, inst_i[i, _II_MAT], bmat)
+            continue
+        q, lo, ld = _to_local(inst_f[i], o, d)
+        qc = (-q[0], -q[1], -q[2], q[3])
+        tmpl_start, tri_count, wtri_start = tri_info[i]
+        for j in range(tri_count):
+            row = tmpl[tmpl_start + j]
+            ok, tt, b0, b1, b2 = _template_tri(row, lo, ld)
+            ok = gate & ok & (tt < bt)
+            sn = [b0 * row[_TF_NA + k] + b1 * row[_TF_NB + k]
+                  + b2 * row[_TF_NC + k] for k in range(3)]
+            wn = _quat_rotate_tile(qc, sn)
+            bt = torch.where(ok, tt, bt)
+            btri = torch.where(ok, wtri_start + j, btri)
+            bu = torch.where(ok, b1, bu)
+            bv = torch.where(ok, b2, bv)
+            bn = [torch.where(ok, wn[k], bn[k]) for k in range(3)]
+            bmat = torch.where(ok, row[_TF_MAT].to(torch.int32), bmat)
+
+    # re-normalize the interpolated normal once (reference fix_isect)
+    nlen = torch.sqrt(bn[0] * bn[0] + bn[1] * bn[1] + bn[2] * bn[2])
+    ninv = 1.0 / torch.clamp(nlen, min=rm.THRESHOLD)
+    return Hit(
+        valid=torch.isfinite(bt),
+        t=bt,
+        wtri=btri,
+        uv=torch.stack([bu, bv], dim=-1),
+        normal=torch.stack([bn[k] * ninv for k in range(3)], dim=-1),
+        mat=bmat,
+    )
+
+
+def bvh_occlude2_reference(o1, d1, mt1, o2, d2, mt2, data: CastData):
+    """Plain version of K2: ``(blocked1, blocked2)`` bool ``[R]`` — a query
+    is blocked iff some hit has ``THRESHOLD <= t <= max_t``."""
+    inst_f, inst_i, tmpl = (data.tables.inst_f32, data.tables.inst_i32,
+                            data.tables.tmpl)
+    is_box = (inst_i[:, _II_IS_BOX] > 0).cpu().tolist()
+    tri_info = inst_i[:, [_II_TMPL_START, _II_TRI_COUNT]].cpu().tolist()
+    queries = []
+    for ro, rd, mt in ((o1, d1, mt1), (o2, d2, mt2)):
+        par, inv = _ray_recips(rd)
+        queries.append(dict(o=[ro[:, k] for k in range(3)],
+                            d=[rd[:, k] for k in range(3)], mt=mt,
+                            par=par, inv=inv,
+                            blk=torch.zeros(ro.shape[0], dtype=torch.bool,
+                                            device=ro.device)))
+
+    for flat, i in _leaves(data):
+        for qy in queries:
+            o, d, mt, blk = qy["o"], qy["d"], qy["mt"], qy["blk"]
+            tns, tfs, inside = _slab_terms(data.nodes[flat], o, qy["inv"],
+                                           qy["par"])
+            tmin = _max3(tns)
+            tmax = _min3(tfs)
+            active = ((tmin <= tmax) & (tmax >= rm.THRESHOLD) & ~blk
+                      & (tmin <= mt) & inside)
+            if is_box[i]:
+                # blocked iff the slab hit time lands in [THRESHOLD, max_t]
+                t_hit = torch.where(tmin >= rm.THRESHOLD, tmin, tmax)
+                blk = blk | (active & (tmin <= tmax) & inside
+                             & (t_hit >= rm.THRESHOLD) & (t_hit <= mt))
+            else:
+                _, lo, ld = _to_local(inst_f[i], o, d)
+                tmpl_start, tri_count = tri_info[i]
+                for j in range(tri_count):
+                    ok, tt, _, _, _ = _template_tri(tmpl[tmpl_start + j],
+                                                    lo, ld)
+                    blk = blk | (active & ok & (tt <= mt))
+            qy["blk"] = blk
+    return queries[0]["blk"], queries[1]["blk"]
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the kernel for CUDA tensors, the plain version for CPU tensors
+# ---------------------------------------------------------------------------
+
+def _check(name, x, dtype, shape, device):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, rays on {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_data(data: CastData, device):
+    t = data.tables
+    n_inst = t.inst_f32.shape[0]
+    n = data.n_leaves
+    _check("inst_f32", t.inst_f32, torch.float32, (n_inst, _IF_WIDTH), device)
+    _check("inst_i32", t.inst_i32, torch.int32, (n_inst, _II_WIDTH), device)
+    _check("tmpl", t.tmpl, torch.float32, (t.tmpl.shape[0], _TF_WIDTH),
+           device)
+    _check("nodes", data.nodes, torch.float32, (2 * n - 1, _NODE_WIDTH),
+           device)
+    _check("ordering", data.ordering, torch.int32, (n,), device)
+
+
+def _device_kind(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device.type
+
+
+def _ptr(x: torch.Tensor):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def bvh_cast(ro: torch.Tensor, rd: torch.Tensor, data: CastData, *,
+             exact_uv: bool = False) -> Hit:
+    """K1 (``_bvh_cast_kernel``): closest hit of rays ``[R, 3]`` f32.
+    The kernel's ``exact_uv`` branch (true triangle and barycentrics on the
+    box fast path) is not ported and raises."""
+    if exact_uv:
+        raise NotImplementedError(
+            "bvh_cast(exact_uv=True) is not ported (ROADMAP.md Queue 1 item "
+            "7: edge-aware gradients with K1's exact_uv branch)")
+    R = ro.shape[0]
+    _check("ro", ro, torch.float32, (R, 3), ro.device)
+    _check("rd", rd, torch.float32, (R, 3), ro.device)
+    if _device_kind(ro) == "cpu":
+        return bvh_cast_reference(ro, rd, data)
+    _check_data(data, ro.device)
+    from . import kernels
+
+    dev = ro.device
+    t = torch.empty(R, dtype=torch.float32, device=dev)
+    wtri = torch.empty(R, dtype=torch.int32, device=dev)
+    uv = torch.empty(R, 2, dtype=torch.float32, device=dev)
+    normal = torch.empty(R, 3, dtype=torch.float32, device=dev)
+    mat = torch.empty(R, dtype=torch.int32, device=dev)
+    if R > 0:
+        tab = data.tables
+        err = kernels.library().rt_bvh_cast(
+            _ptr(ro), _ptr(rd), R, _ptr(data.nodes), _ptr(data.ordering),
+            data.n_leaves, _ptr(tab.inst_f32), _ptr(tab.inst_i32),
+            _ptr(tab.tmpl), _ptr(t), _ptr(wtri), _ptr(uv), _ptr(normal),
+            _ptr(mat), dev.index, kernels.stream_handle(dev))
+        _raise_on(err, "bvh_cast")
+        bvh_cast.launches += 1
+    return Hit(valid=torch.isfinite(t), t=t, wtri=wtri, uv=uv,
+               normal=normal, mat=mat)
+
+
+bvh_cast.launches = 0
+
+
+def bvh_occlude2(o1, d1, mt1, o2, d2, mt2, data: CastData):
+    """K2 (``_bvh_occlude2_kernel``): two any-hit queries over one walk.
+    Rays ``[R, 3]`` f32, ``max_t`` ``[R]`` f32.  Returns two bool ``[R]``."""
+    R = o1.shape[0]
+    dev = o1.device
+    for name, x in (("o1", o1), ("d1", d1), ("o2", o2), ("d2", d2)):
+        _check(name, x, torch.float32, (R, 3), dev)
+    _check("mt1", mt1, torch.float32, (R,), dev)
+    _check("mt2", mt2, torch.float32, (R,), dev)
+    if _device_kind(o1) == "cpu":
+        return bvh_occlude2_reference(o1, d1, mt1, o2, d2, mt2, data)
+    _check_data(data, dev)
+    from . import kernels
+
+    blk1 = torch.empty(R, dtype=torch.bool, device=dev)
+    blk2 = torch.empty(R, dtype=torch.bool, device=dev)
+    if R > 0:
+        tab = data.tables
+        err = kernels.library().rt_bvh_occlude2(
+            _ptr(o1), _ptr(d1), _ptr(mt1), _ptr(o2), _ptr(d2), _ptr(mt2), R,
+            _ptr(data.nodes), _ptr(data.ordering), data.n_leaves,
+            _ptr(tab.inst_f32), _ptr(tab.inst_i32), _ptr(tab.tmpl),
+            _ptr(blk1), _ptr(blk2), dev.index, kernels.stream_handle(dev))
+        _raise_on(err, "bvh_occlude2")
+        bvh_occlude2.launches += 1
+    return blk1, blk2
+
+
+bvh_occlude2.launches = 0
+
+
+def make_cuda_cast(data: CastData, cfg: RenderConfig):
+    """The engine's cast: ``cast(ro, rd) -> Hit`` with an ``occlude2``
+    attribute.  ``engine="cuda"`` goes through the dispatching wrappers;
+    ``engine="torch"`` calls the plain versions on any device."""
+    if cfg.engine == "cuda":
+        cast_fn, occ2_fn = bvh_cast, bvh_occlude2
+    elif cfg.engine == "torch":
+        cast_fn, occ2_fn = bvh_cast_reference, bvh_occlude2_reference
+    else:
+        raise ValueError(f"unknown engine {cfg.engine!r} "
+                         "(expected 'torch' or 'cuda')")
+
+    def cast(ro, rd):
+        return cast_fn(ro.contiguous(), rd.contiguous(), data)
+
+    def occlude2(o1, d1, mt1, o2, d2, mt2):
+        R = o1.shape[0]
+
+        def mt(x):
+            x = torch.as_tensor(x, dtype=torch.float32, device=o1.device)
+            return x.expand(R).contiguous()
+
+        return occ2_fn(o1.contiguous(), d1.contiguous(), mt(mt1),
+                       o2.contiguous(), d2.contiguous(), mt(mt2), data)
+
+    cast.occlude2 = occlude2
+    return cast

@@ -1,0 +1,137 @@
+"""Frame assembly: camera rays in 32x32 blocks, one shading round, clamp.
+
+Counterpart of ``raytracer_tpu/render/engine.py`` for the forward slice:
+``render_frame`` -> ``_frame_rays_blocked`` (pad to a multiple of 32, pad
+pixels keep origin 0 and dir (0,0,1), reorder into 32x32 screen blocks so
+neighbouring rays share a frustum) -> ``render_rays_stats`` -> round 0 of
+``_radiance_dense`` -> unblock and crop.  Worlds with a reflective or
+refractive material spawn bounce rounds, which are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..scene import Camera, RenderConfig, Scene
+from .cast import CastFn, Hit, hit_shading_attrs
+from .cuda_engine import make_cuda_cast, prepare_cast
+from .geometry import WorldGeometry, camera_rays, expand_geometry
+from .shading import check_lights, gather_material_rows, illuminate
+
+BLOCK = 32  # screen-space tile edge: one 32x32 block of rays
+
+
+def check_config(scene: Scene, cfg: RenderConfig) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for any setting
+    the forward slice does not port (never a silent switch of path)."""
+    if cfg.any_reflective or cfg.any_refractive:
+        raise NotImplementedError(
+            "worlds with reflective or refractive materials spawn bounce "
+            "rounds, which are not ported (ROADMAP.md Queue 1 items 4-5: "
+            "bounce streams, refraction); the loader sets any_reflective/"
+            "any_refractive from the materials")
+    if cfg.spp > 1:
+        raise NotImplementedError(
+            "spp > 1 is not ported (ROADMAP.md Queue 1 item 6: spp)")
+    if (cfg.wavefront_tile_cap > 0.0 or cfg.child_tile_cap > 0.0
+            or cfg.static_tile_cap > 0.0):
+        raise NotImplementedError(
+            "tile caps are not ported (ROADMAP.md Queue 1 item 4: bounce "
+            "streams and tile-compacted queues)")
+    if cfg.edge_aware_grads:
+        raise NotImplementedError(
+            "edge_aware_grads is not ported (ROADMAP.md Queue 1 item 7: "
+            "edge-aware gradients with K1's exact_uv branch)")
+    check_lights(scene, cfg)
+
+
+def _radiance_dense(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+                    cfg: RenderConfig, ray_o, ray_d):
+    """Round 0 of the wavefront (primary rays); with no material able to
+    spawn children this is the whole of ``_radiance_dense``.  Returns
+    ``(acc [R,4], dropped)``."""
+    check_config(scene, cfg)
+    R = ray_o.shape[0]
+    active = torch.ones(R, dtype=torch.bool, device=ray_o.device)
+    hit = cast_fn(ray_o, ray_d)
+    # sanitize miss times (inf) so positions of masked lanes stay finite
+    hit = Hit(valid=hit.valid, t=torch.where(hit.valid, hit.t, 1.0),
+              wtri=hit.wtri, uv=hit.uv, normal=hit.normal, mat=hit.mat)
+    h_valid = active & hit.valid
+    normal, mat_idx, _ = hit_shading_attrs(geom, hit)
+    rmats = gather_material_rows(scene.materials, mat_idx)
+    lum = illuminate(scene, cast_fn, cfg, ray_o, ray_d, hit, normal, rmats,
+                     h_valid)
+    # the primary round's attenuation and visibility are exactly 1 on hits
+    contrib = torch.where(h_valid[:, None], lum, 0.0)
+    return contrib, torch.zeros((), dtype=torch.int32, device=ray_o.device)
+
+
+def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+                      cfg: RenderConfig, ray_o, ray_d):
+    """Radiance of a flat ray batch, clamped to <= 1 like the canvas write.
+    Returns ``(img, dropped)``; nothing is dropped without tile caps."""
+    acc, dropped = _radiance_dense(scene, geom, cast_fn, cfg,
+                                   ray_o.reshape(-1, 3), ray_d.reshape(-1, 3))
+    img = torch.clamp(acc, max=1.0).reshape(ray_o.shape[:-1] + (4,))
+    return img, dropped
+
+
+def make_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig) -> CastFn:
+    """The engine's cast for ``cfg.engine`` (``"cuda"`` kernels or the
+    ``"torch"`` plain versions), with its ``occlude2`` query."""
+    return make_cuda_cast(prepare_cast(scene, geom, cfg), cfg)
+
+
+def _to_blocks(x, hp, wp):
+    """[Hp, Wp, ...] -> block-major [Hp*Wp, ...]."""
+    lead = x.shape[2:]
+    x = x.reshape(hp // BLOCK, BLOCK, wp // BLOCK, BLOCK, *lead)
+    return x.transpose(1, 2).reshape(hp * wp, *lead)
+
+
+def _from_blocks(x, hp, wp):
+    lead = x.shape[1:]
+    x = x.reshape(hp // BLOCK, wp // BLOCK, BLOCK, BLOCK, *lead)
+    return x.transpose(1, 2).reshape(hp, wp, *lead)
+
+
+def _frame_rays_blocked(camera: Camera, cfg: RenderConfig):
+    """Full-frame camera rays in block-major [R, 3] layout (padded)."""
+    ray_o, ray_d = camera_rays(camera, cfg.width, cfg.height)
+    hp = (cfg.height + BLOCK - 1) // BLOCK * BLOCK
+    wp = (cfg.width + BLOCK - 1) // BLOCK * BLOCK
+    pad = (0, 0, 0, wp - cfg.width, 0, hp - cfg.height)
+    ray_o = torch.nn.functional.pad(ray_o, pad)
+    ray_d = torch.nn.functional.pad(ray_d, pad)
+    if hp != cfg.height or wp != cfg.width:
+        dev = ray_d.device
+        yy = torch.arange(hp, device=dev)[:, None]
+        xx = torch.arange(wp, device=dev)[None, :]
+        pad_mask = (yy >= cfg.height) | (xx >= cfg.width)
+        ray_d = torch.where(pad_mask[..., None],
+                            torch.tensor([0.0, 0.0, 1.0], device=dev), ray_d)
+    return _to_blocks(ray_o, hp, wp), _to_blocks(ray_d, hp, wp), hp, wp
+
+
+def render_frame_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """Like ``render_frame``, also returning ``{"dropped": i32}``."""
+    geom = expand_geometry(scene)
+    cast_fn = make_cast(scene, geom, cfg)
+    ro_b, rd_b, hp, wp = _frame_rays_blocked(camera, cfg)
+    img_b, dropped = render_rays_stats(scene, geom, cast_fn, cfg, ro_b, rd_b)
+    img = _from_blocks(img_b, hp, wp)
+    return img[: cfg.height, : cfg.width], {"dropped": dropped}
+
+
+def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """Render one RGBA float frame [H, W, 4] (clamped to <= 1) on the
+    scene's device."""
+    img, _ = render_frame_with_stats(scene, camera, cfg)
+    return img
+
+
+def frame_to_u8(img: torch.Tensor) -> torch.Tensor:
+    """Float RGBA -> RGBA8 by truncation, ``(u8)(255 * c)`` (reference
+    rayenv/color.h:38-46)."""
+    return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test skips (with a reason) when
+``torch.cuda.is_available()`` is false, decided inside the test, never at
+import.  Run on a GPU machine with::
+
+    python -m pytest tests/test_torch_cuda.py -q -m gpu
+
+K1 must give the plain version's valid, triangle and material exactly, t at
+rtol 1e-5 and normals/uv at atol 1e-5; K2's masks must be identical; a frame
+through both kernels must equal the ``"torch"`` engine at atol 1e-5."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu_torch as rtt
+from raytracer_tpu_torch.builder import scale_camera
+from raytracer_tpu_torch.render import cuda_engine as ce
+from raytracer_tpu_torch.render.engine import _frame_rays_blocked, render_frame
+from raytracer_tpu_torch.render.geometry import expand_geometry
+from raytracer_tpu_torch.render.shading import shadow_rays
+
+pytestmark = pytest.mark.gpu
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = os.path.join(REPO, "raytracer_tpu_torch", "worlds", "terrain8.json")
+
+
+@pytest.fixture(scope="module")
+def gpu_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    dev = torch.device("cuda", 0)
+    w = rtt.generate(WORLD)
+    scene = rtt.to_device(w.scene, dev)
+    cfg = w.config.replace(engine="cuda", width=160, height=120)
+    cam = rtt.to_device(scale_camera(w.camera, 160, w.config.width), dev)
+    geom = expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, cfg)
+    data_t = ce.CastData(tables=ce.build_tables(scene, geom, exact_uv=True),
+                         nodes=data.nodes, ordering=data.ordering)
+    ro, rd, _, _ = _frame_rays_blocked(cam, cfg)
+    rng = np.random.default_rng(1)
+    o = rng.uniform(-6, 6, (4096, 3)).astype(np.float32)
+    o[:, 1] += 4.0
+    d = rng.standard_normal((4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = {"primary": (ro, rd),
+            "random": (torch.from_numpy(o).to(dev),
+                       torch.from_numpy(d).to(dev))}
+    return dict(scene=scene, cam=cam, cfg=cfg,
+                data={"box": data, "template": data_t}, rays=rays)
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("rays", ["primary", "random"])
+def test_bvh_cast_kernel_matches_plain(gpu_world, tables, rays):
+    data = gpu_world["data"][tables]
+    o, d = gpu_world["rays"][rays]
+    before = ce.bvh_cast.launches
+    hk = ce.bvh_cast(o, d, data)
+    assert ce.bvh_cast.launches == before + 1
+    hp = ce.bvh_cast_reference(o, d, data)
+    torch.cuda.synchronize()
+    assert torch.equal(hk.valid, hp.valid)
+    v = hk.valid
+    assert int(v.sum()) > 0
+    assert torch.equal(hk.wtri[v], hp.wtri[v])
+    assert torch.equal(hk.mat[v], hp.mat[v])
+    torch.testing.assert_close(hk.t[v], hp.t[v], rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(hk.normal, hp.normal, rtol=0.0, atol=1e-5)
+    torch.testing.assert_close(hk.uv, hp.uv, rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+def test_bvh_occlude2_kernel_matches_plain(gpu_world, tables):
+    data = gpu_world["data"]["box"]
+    ro, rd = gpu_world["rays"]["primary"]
+    hit = ce.bvh_cast(ro, rd, data)
+    t = torch.where(hit.valid, hit.t, 1.0)
+    o1, d1, dist, o2, d2 = shadow_rays(gpu_world["scene"],
+                                       ro + t[:, None] * rd, hit.valid)
+    q = (o1, d1, dist, o2, d2.contiguous(), torch.full_like(dist, np.inf))
+    data = gpu_world["data"][tables]
+    bk = ce.bvh_occlude2(*q, data)
+    bp = ce.bvh_occlude2_reference(*q, data)
+    torch.cuda.synchronize()
+    for a, b in zip(bk, bp):
+        assert torch.equal(a, b)
+        assert 0 < int(a.sum()) < a.numel()
+
+
+def test_frame_cuda_engine_matches_torch_engine(gpu_world):
+    s, cam, cfg = gpu_world["scene"], gpu_world["cam"], gpu_world["cfg"]
+    n1, n2 = ce.bvh_cast.launches, ce.bvh_occlude2.launches
+    img = render_frame(s, cam, cfg)
+    assert ce.bvh_cast.launches == n1 + 1
+    assert ce.bvh_occlude2.launches == n2 + 1
+    ref = render_frame(s, cam, cfg.replace(engine="torch"))
+    torch.testing.assert_close(img, ref, rtol=0.0, atol=1e-5)
+
+
+def test_wrappers_reject_bad_inputs(gpu_world):
+    data = gpu_world["data"]["box"]
+    o, d = gpu_world["rays"]["random"]
+    with pytest.raises(TypeError):
+        ce.bvh_cast(o.double(), d.double(), data)
+    with pytest.raises(ValueError):
+        ce.bvh_cast(o[:, :2], d[:, :2], data)
+    with pytest.raises(ValueError):
+        ce.bvh_cast(o.t().contiguous().t(), d, data)
+    with pytest.raises(ValueError):
+        ce.bvh_cast(o.cpu(), d, data)

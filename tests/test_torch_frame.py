@@ -1,0 +1,160 @@
+"""The PyTorch port's forward frame against the JAX package, on the CPU.
+
+``render_frame(engine="torch")`` of the port against the JAX package's
+``render_frame(engine="pallas")`` (Pallas in interpret mode) on terrain8 at
+64x48, atol 1e-5; the ``"cuda"`` engine on CPU tensors goes through the
+kernel wrappers, which take the plain versions there, and must give the same
+frame.  Also the frame plumbing (block order, u8 conversion), the CLI, and
+the settings the slice does not port (they raise, never switch path)."""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu as jrt
+from raytracer_tpu.builder import scale_camera as jscale_camera
+from raytracer_tpu.render import render_frame as jrender_frame
+from raytracer_tpu.scene import device_scene
+
+import raytracer_tpu_torch as rtt
+from raytracer_tpu_torch import cli, convert
+from raytracer_tpu_torch.render import engine
+from raytracer_tpu_torch.render.engine import frame_to_u8, render_frame
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = os.path.join(REPO, "raytracer_tpu_torch", "worlds", "terrain8.json")
+W, H = 64, 48
+
+
+@pytest.fixture(scope="module")
+def frames():
+    jw = jrt.generate(WORLD)
+    jcam = jax.tree_util.tree_map(
+        jnp.asarray, jscale_camera(jw.camera, W, jw.config.width))
+    jcfg = jw.config.replace(width=W, height=H, engine="pallas")
+    jimg = np.asarray(jax.jit(jrender_frame, static_argnames=("cfg",))(
+        device_scene(jw.scene), jcam, jcfg))
+    scene = convert.scene_from_numpy(jw.scene)
+    cam = convert.camera_from_numpy(jscale_camera(jw.camera, W,
+                                                  jw.config.width))
+    cfg = convert.config_from_jax(jcfg).replace(engine="torch")
+    return dict(jimg=jimg, scene=scene, cam=cam, cfg=cfg)
+
+
+def test_frame_matches_jax_pallas(frames):
+    img = render_frame(frames["scene"], frames["cam"], frames["cfg"])
+    assert img.shape == (H, W, 4) and img.dtype == torch.float32
+    jimg = frames["jimg"]
+    np.testing.assert_allclose(img.numpy(), jimg, rtol=0, atol=1e-5)
+    # the comparison tests something: hits, shadows, no saturated frame
+    hits = jimg[..., :3].max(-1) > 0
+    assert 0.05 < hits.mean() < 0.5
+    assert (jimg[..., :3] < 1.0).all(-1)[hits].any()
+
+
+def test_cuda_engine_on_cpu_equals_torch_engine(frames):
+    a = render_frame(frames["scene"], frames["cam"], frames["cfg"])
+    b = render_frame(frames["scene"], frames["cam"],
+                     frames["cfg"].replace(engine="cuda"))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (40, 70)])
+def test_blocks_roundtrip(hw):
+    hp, wp = hw
+    x = torch.arange(hp * wp * 3, dtype=torch.float32).reshape(hp, wp, 3)
+    if hp % engine.BLOCK or wp % engine.BLOCK:
+        hp = -(-hp // engine.BLOCK) * engine.BLOCK
+        wp = -(-wp // engine.BLOCK) * engine.BLOCK
+        x = torch.nn.functional.pad(x, (0, 0, 0, wp - hw[1], 0, hp - hw[0]))
+    b = engine._to_blocks(x, hp, wp)
+    # one 32x32 screen block is one contiguous run of 1024 rays
+    assert torch.equal(b[:engine.BLOCK], x[0, :engine.BLOCK])
+    assert torch.equal(engine._from_blocks(b, hp, wp), x)
+
+
+def test_frame_rays_blocked_pads_like_jax(frames):
+    cfg = frames["cfg"].replace(width=40, height=30)
+    ro, rd, hp, wp = engine._frame_rays_blocked(frames["cam"], cfg)
+    assert (hp, wp) == (32, 64) and ro.shape == (hp * wp, 3)
+    grid_d = engine._from_blocks(rd, hp, wp)
+    grid_o = engine._from_blocks(ro, hp, wp)
+    assert torch.equal(grid_d[30:, :], torch.tensor([0.0, 0.0, 1.0]).expand(
+        2, wp, 3))
+    assert torch.equal(grid_d[:, 40:], torch.tensor([0.0, 0.0, 1.0]).expand(
+        hp, 24, 3))
+    assert torch.equal(grid_o[30:], torch.zeros(2, wp, 3))
+
+
+def test_frame_to_u8_truncates():
+    img = torch.tensor([[[0.0, 0.999, 1.5, -0.2]]])
+    assert frame_to_u8(img).tolist() == [[[0, 254, 255, 0]]]
+
+
+def _reflective_world(tmp_path):
+    import json
+
+    with open(WORLD) as fh:
+        doc = json.load(fh)
+    doc["cubes"][0]["Kr"] = [0.3, 0.3, 0.3, 0.3]
+    p = tmp_path / "refl.json"
+    p.write_text(json.dumps(doc))
+    return str(p)
+
+
+@pytest.mark.parametrize("change", [
+    "traversal_cull", "kernel_mxu", "edge_aware", "spp", "tile_cap",
+    "fused_off", "two_point_lights", "texture", "reflective"])
+def test_unported_settings_raise(frames, tmp_path, change):
+    scene, cam, cfg = frames["scene"], frames["cam"], frames["cfg"]
+    cfg = cfg.replace(engine="cuda", width=8, height=8)
+    if change == "traversal_cull":
+        cfg = cfg.replace(pallas_traversal="cull")
+    elif change == "kernel_mxu":
+        cfg = cfg.replace(pallas_kernel="mxu")
+    elif change == "edge_aware":
+        cfg = cfg.replace(edge_aware_grads=True)
+    elif change == "spp":
+        cfg = cfg.replace(spp=4)
+    elif change == "tile_cap":
+        cfg = cfg.replace(wavefront_tile_cap=0.5)
+    elif change == "texture":
+        cfg = cfg.replace(texture_mapping=True)
+    elif change == "fused_off":
+        cfg = cfg.replace(fused_shadows=False)
+    elif change == "two_point_lights":
+        lights = dataclasses.replace(
+            scene.lights, point_pos=scene.lights.point_pos.repeat(2, 1),
+            point_col=scene.lights.point_col.repeat(2, 1))
+        scene = dataclasses.replace(scene, lights=lights)
+    else:
+        w = rtt.generate(_reflective_world(tmp_path))
+        scene = rtt.to_device(w.scene, "cpu")
+        cfg = w.config.replace(engine="cuda", width=8, height=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_frame(scene, cam, cfg)
+
+
+def test_cli_writes_png_on_cpu(tmp_path, capsys):
+    from raytracer_tpu_torch.pngio import read_png
+
+    out = str(tmp_path / "f.png")
+    assert cli.main(["-c", WORLD, "--width", "32", "--height", "24",
+                     "--device", "cpu", "-o", out]) == 0
+    png = read_png(out)
+    assert png.shape == (24, 32, 4)
+    assert png[..., :3].max() > 0
+
+
+def test_cli_device_cuda_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: --device cuda is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["-c", WORLD, "--width", "8", "--height", "8"])

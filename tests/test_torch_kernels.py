@@ -1,0 +1,180 @@
+"""Plain versions of K1 and K2 in the PyTorch port against the JAX package's
+Pallas kernels (interpret mode on the CPU).
+
+K1 (``bvh_cast``) against ``make_pallas_cast(...)`` and K2
+(``bvh_occlude2``) against its ``.occlude2``, on terrain8 with box tables and
+with template tables (``build_tables(exact_uv=True)``: every instance takes
+the triangle loop while the kernel runs with ``exact_uv=False``).  Rays: a
+128x96 primary frame and 1,024 seeded random rays, handed to both packages
+as the same numpy arrays.
+
+Contract (``tests/test_pallas.py::_compare``): valid exact; t at rtol 1e-5;
+normal at atol 1e-5; material exact; instance and box face exact (with
+template tables the triangle id and uv too).  Occlusion masks are exact.
+The per-ray walk may differ from the tile walk on a boundary ray where the
+slab test and the triangle test disagree by a rounding; the budget for that
+is 1e-4 of the rays, which at these sizes means none."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu as jrt
+from raytracer_tpu.builder import scale_camera as jscale_camera
+from raytracer_tpu.render import geometry as jgeometry
+from raytracer_tpu.render import pallas_engine as pe
+from raytracer_tpu.scene import device_scene
+
+from raytracer_tpu_torch import convert
+from raytracer_tpu_torch.render import cuda_engine as ce
+from raytracer_tpu_torch.render import geometry
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = os.path.join(REPO, "raytracer_tpu_torch", "worlds", "terrain8.json")
+BOUNDARY_BUDGET = 1e-4
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jw = jrt.generate(WORLD)
+    jscene = device_scene(jw.scene)
+    jgeom = jgeometry.expand_geometry(jscene)
+    cfg = jw.config.replace(engine="pallas")
+    scene = convert.scene_from_numpy(jw.scene)
+    geom = geometry.expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, convert.config_from_jax(cfg))
+    jaux = pe.prepare_pallas_cast(jscene, jgeom, cfg)
+    jaux_t = dict(jaux, tables=pe.build_tables(jscene, jgeom, exact_uv=True))
+    data_t = ce.CastData(tables=ce.build_tables(scene, geom, exact_uv=True),
+                         nodes=data.nodes, ordering=data.ordering)
+    casts = {
+        "box": (pe.make_pallas_cast(jscene, jgeom, cfg, aux=jaux), data),
+        "template": (pe.make_pallas_cast(jscene, jgeom, cfg, aux=jaux_t),
+                     data_t),
+    }
+
+    cam = jax.tree_util.tree_map(
+        jnp.asarray, jscale_camera(jw.camera, 128, jw.config.width))
+    ro, rd = jgeometry.camera_rays(cam, 128, 96)
+    rng = np.random.default_rng(0)
+    o = rng.uniform(-6, 6, (1024, 3)).astype(np.float32)
+    o[:, 1] += 4.0
+    d = rng.standard_normal((1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = {"primary": (np.array(ro).reshape(-1, 3),
+                        np.array(rd).reshape(-1, 3)),
+            "random": (o, d)}
+    return dict(jscene=jscene, jgeom=jgeom, casts=casts, rays=rays,
+                face_of=np.asarray(pe._detect_box_meshes(jscene)[3]),
+                wtri_tri=np.asarray(jscene.wtri_tri),
+                inst=np.asarray(jgeom.inst))
+
+
+def _mismatch_ok(mask, what):
+    frac = float(np.mean(mask))
+    assert frac <= BOUNDARY_BUDGET, f"{what}: {frac:.2e} of rays differ"
+    return ~mask
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("rays", ["primary", "random"])
+def test_bvh_cast_matches_pallas(setup, tables, rays):
+    jcast, data = setup["casts"][tables]
+    o, d = setup["rays"][rays]
+    jh = jcast(jnp.asarray(o), jnp.asarray(d))
+    th = ce.bvh_cast(torch.from_numpy(o), torch.from_numpy(d), data)
+
+    jv = np.asarray(jh.valid)
+    tv = th.valid.numpy()
+    assert jv.sum() > 0
+    keep = _mismatch_ok(jv != tv, "valid")
+    both = jv & tv & keep
+    np.testing.assert_allclose(th.t.numpy()[both], np.asarray(jh.t)[both],
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(th.normal.numpy()[both],
+                               np.asarray(jh.normal)[both], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(th.mat.numpy()[both],
+                                  np.asarray(jh.mat)[both])
+    tw, jwt = th.wtri.numpy()[both], np.asarray(jh.wtri)[both]
+    inst = setup["inst"]
+    np.testing.assert_array_equal(inst[tw], inst[jwt])
+    face = setup["face_of"][setup["wtri_tri"]]
+    np.testing.assert_array_equal(face[tw], face[jwt])
+    if tables == "template":  # the true triangle and its barycentrics
+        np.testing.assert_array_equal(tw, jwt)
+        np.testing.assert_allclose(th.uv.numpy()[both],
+                                   np.asarray(jh.uv)[both], rtol=0,
+                                   atol=1e-5)
+    # miss lanes: t = +inf, tri = 0, mat = 0, normal (0, 0, 1)
+    miss = ~tv
+    assert np.isinf(th.t.numpy()[miss]).all()
+    assert (th.wtri.numpy()[miss] == 0).all()
+    assert (th.mat.numpy()[miss] == 0).all()
+    np.testing.assert_array_equal(th.normal.numpy()[miss],
+                                  np.tile([0.0, 0.0, 1.0], (miss.sum(), 1)))
+
+
+def test_wrappers_check_inputs(setup):
+    data = setup["casts"]["box"][1]
+    o, d = (torch.from_numpy(x) for x in setup["rays"]["random"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ce.bvh_cast(o, d, data, exact_uv=True)
+    with pytest.raises(TypeError):
+        ce.bvh_cast(o.double(), d.double(), data)
+    with pytest.raises(ValueError):
+        ce.bvh_cast(o[:, :2].contiguous(), d[:, :2].contiguous(), data)
+    with pytest.raises(ValueError):
+        ce.bvh_cast(o.t().contiguous().t(), d, data)
+    mt = torch.ones(o.shape[0])
+    with pytest.raises(ValueError):
+        ce.bvh_occlude2(o, d, mt[:-1], o, d, mt, data)
+    # the CUDA path is not taken for CPU tensors: no counter moves
+    n1, n2 = ce.bvh_cast.launches, ce.bvh_occlude2.launches
+    ce.bvh_cast(o, d, data)
+    ce.bvh_occlude2(o, d, mt, o, d, mt, data)
+    assert (ce.bvh_cast.launches, ce.bvh_occlude2.launches) == (n1, n2)
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+def test_bvh_occlude2_matches_pallas(setup, tables):
+    """Both shadow queries of the primary frame: to the point light (finite
+    max_t) and along the directional light (+inf), plus the random rays with
+    a finite max_t."""
+    jcast, data = setup["casts"][tables]
+    o, d = setup["rays"]["primary"]
+    jh = setup["casts"]["box"][0](jnp.asarray(o), jnp.asarray(d))
+    valid = np.asarray(jh.valid)
+    t = np.where(valid, np.asarray(jh.t), 1.0)
+    hit = o + t[:, None] * d
+    lpos = np.array([0.0, 20.0, 0.0], np.float32)
+    disp = lpos - hit
+    dist = np.linalg.norm(disp, axis=-1).astype(np.float32)
+    d1 = (disp / dist[:, None]).astype(np.float32)
+    d2 = np.broadcast_to(-np.array([0.3, -1.0, 0.5], np.float32)
+                         / np.float32(np.linalg.norm([0.3, -1.0, 0.5])),
+                         hit.shape).astype(np.float32)
+    park = np.where(valid[:, None], hit, np.float32(1e30)).astype(np.float32)
+    o1 = (park + np.float32(1e-5) * d1).astype(np.float32)
+    o2 = (park + np.float32(1e-5) * d2).astype(np.float32)
+    ro, rd = setup["rays"]["random"]
+    mt_r = np.full(ro.shape[0], 4.0, np.float32)
+    # query 1: shadow rays to the point light, then the random rays
+    q1 = (np.concatenate([o1, ro]), np.concatenate([d1, rd]),
+          np.concatenate([dist, mt_r]))
+    q2 = (np.concatenate([o2, ro]), np.concatenate([d2, rd[::-1]]),
+          np.concatenate([np.full(dist.shape, np.inf, np.float32),
+                          np.full(mt_r.shape, np.inf, np.float32)]))
+    jb1, jb2 = jcast.occlude2(*[jnp.asarray(x) for x in q1],
+                              *[jnp.asarray(x) for x in q2])
+    tb1, tb2 = ce.bvh_occlude2(*[torch.from_numpy(np.ascontiguousarray(x))
+                                 for x in q1 + q2], data)
+    for j, t_, name in ((jb1, tb1, "query 1"), (jb2, tb2, "query 2")):
+        j = np.asarray(j)
+        assert 0 < j.sum() < j.size
+        _mismatch_ok(j != t_.numpy(), name)

@@ -1,15 +1,21 @@
-"""Command-line interface of the port (counterpart of ``raytracer_tpu/cli.py``,
-forward rendering only).
+"""Command-line interface of the port (counterpart of ``raytracer_tpu/cli.py``:
+rendering, benchmarking and training).
 
     python -m raytracer_tpu_torch.cli -c WORLD.json [-o out.png]
     python -m raytracer_tpu_torch.cli -c WORLD.json -b [--repeats N]
+    python -m raytracer_tpu_torch.cli -c WORLD.json --train N [--checkpoint P]
 
 Flags: ``-c/--config`` world JSON, ``-o/--out`` PNG path, ``-b/--bench``
 time frames (prints ``Time: <ms>`` and one JSON line), ``--repeats``,
 ``--width``/``--height`` canvas overrides (the field of view is kept),
 ``-s/--reference-impl`` the plain-PyTorch ``"torch"`` engine instead of the
 CUDA kernels, ``--device`` (default ``cuda``; there is no fallback to the
-CPU when CUDA is missing).
+CPU when CUDA is missing).  Training: ``--train N`` / ``--train-until
+TOTAL`` SGD steps on materials and lights toward ``--target-png`` (or the
+scene rendered with ``kd * 1.3``), ``--lr``, ``--checkpoint`` (resumed when
+it exists) written every ``--checkpoint-every`` steps; one ``train_step``
+JSON line per step on stderr.  ``--elastic``, ``--hang-timeout`` and
+``--profile-dir`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -36,7 +42,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repeats", type=int, default=1, help="bench repetitions")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument("--train", type=int, default=0, metavar="N",
+                   help="run N differentiable-rendering SGD steps on the "
+                        "materials and lights")
+    p.add_argument("--train-until", type=int, default=0, metavar="TOTAL",
+                   help="train to absolute step TOTAL (a resumed run "
+                        "computes only the steps after its checkpoint)")
+    p.add_argument("--target-png", default=None,
+                   help="target image for --train (default: the scene "
+                        "rendered with kd * 1.3)")
+    p.add_argument("--checkpoint", default="train_ckpt.npz",
+                   help="checkpoint path for --train (resumed if it exists)")
+    p.add_argument("--checkpoint-every", type=int, default=10,
+                   help="save the --train checkpoint every K steps")
+    p.add_argument("--lr", type=float, default=0.05, help="--train SGD rate")
+    for flag in _UNPORTED:
+        p.add_argument(flag, default=None, help="not ported (raises)")
     return p
+
+
+# supervised restarts and device traces: ROADMAP.md Queue 1 item 9
+_UNPORTED = ("--elastic", "--hang-timeout", "--profile-dir")
+
+
+def _check_unported(args) -> None:
+    for flag in _UNPORTED:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            raise NotImplementedError(
+                f"{flag} is not ported (ROADMAP.md Queue 1 item 9: the ops "
+                "surface, elastic training and tracing)")
 
 
 def _device(name: str):
@@ -49,8 +83,66 @@ def _device(name: str):
     return dev
 
 
+def _train(args, scene, camera, cfg) -> int:
+    """Fit the materials and lights to a target image by SGD, logging one
+    ``train_step`` line per step and checkpointing every K steps
+    (``raytracer_tpu/cli.py:139-226`` without its fault injection)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from . import checkpoint, diff, tracing
+    from .pngio import read_png
+    from .render import render_frame
+
+    dev = scene.verts.device
+    if args.target_png:
+        rgb = read_png(args.target_png).astype(np.float32) / 255.0
+        if rgb.shape[-1] == 3:
+            rgb = np.concatenate(
+                [rgb, np.ones(rgb.shape[:-1] + (1,), np.float32)], -1)
+        target = torch.from_numpy(rgb).to(dev)
+        if tuple(target.shape) != (cfg.height, cfg.width, 4):
+            raise ValueError(f"target {tuple(target.shape)} != frame "
+                             f"{(cfg.height, cfg.width, 4)}")
+    else:
+        # self-supervised fixture: the same scene with brighter diffuse
+        mats = scene.materials
+        bright = dataclasses.replace(mats, kd=mats.kd * 1.3)
+        with torch.no_grad():
+            target = render_frame(dataclasses.replace(scene, materials=bright),
+                                  camera, cfg)
+
+    params = diff.trainable_params(scene, camera, include_camera=False)
+    start = 0
+    if os.path.exists(args.checkpoint):
+        params, start = checkpoint.load(args.checkpoint, params)
+        tracing.log("checkpoint_restored", path=args.checkpoint, step=start)
+    end = args.train_until if args.train_until else start + args.train
+    if start >= end:
+        print(f"already trained to step {start} (target {end}); nothing to do")
+        return 0
+
+    stats = tracing.FrameStats(width=cfg.width, height=cfg.height,
+                               spp=cfg.spp)
+    for step in range(start, end):
+        with stats:
+            value, _, params = diff.train_step(scene, camera, cfg, target,
+                                               params, lr=args.lr)
+            value = float(value)
+        tracing.log("train_step", step=step, loss=value)
+        if (step + 1) % args.checkpoint_every == 0 or step + 1 == end:
+            checkpoint.save(args.checkpoint, params, step=step + 1)
+    print(f"trained {end - start} steps; final loss {value:.6f}; "
+          f"checkpoint -> {args.checkpoint}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    _check_unported(args)
     import torch
 
     from . import generate, to_device
@@ -72,6 +164,9 @@ def main(argv=None) -> int:
     camera = to_device(camera, dev)
     print(f"Loaded scene: {args.config} ({cfg.width}x{cfg.height}, "
           f"engine={cfg.engine}, device={dev})")
+
+    if args.train or args.train_until:
+        return _train(args, scene, camera, cfg)
 
     if args.bench:
         img = render_frame(scene, camera, cfg)  # warm-up: kernel build

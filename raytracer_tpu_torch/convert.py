@@ -1,4 +1,4 @@
-"""Carry the JAX package's scene state across to the port.
+"""Carry the JAX package's scene state and parameters across to the port.
 
 The JAX package's ``Scene`` / ``Camera`` (``raytracer_tpu/scene.py``) have the
 same fields as the port's.  These functions read them by name, as numpy
@@ -6,6 +6,11 @@ arrays, and build the port's dataclasses on a torch device, so that both
 packages compute on identical inputs.  The scene arrays play the role that
 weights play for a model.  Nothing here imports JAX: any object with the
 right attributes (numpy or JAX array leaves) is accepted.
+
+``params_from_numpy`` / ``params_to_numpy`` carry the ``trainable_params``
+dict of ``raytracer_tpu.diff`` (materials, lights, camera) both ways, so
+that both packages can take the same parameters and their gradients can be
+compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -13,7 +18,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from . import tree
 from .scene import Camera, Lights, Materials, RenderConfig, Scene, to_device
 
 
@@ -51,3 +58,24 @@ def config_from_jax(jax_cfg) -> RenderConfig:
           for f in dataclasses.fields(RenderConfig)}
     kw["engine"] = _ENGINES[kw["engine"]]
     return RenderConfig(**kw)
+
+
+_PARAM_TYPES = {"materials": Materials, "lights": Lights}
+
+
+def params_from_numpy(jax_params) -> dict:
+    """The port's parameter dict (CPU leaves with ``requires_grad``) from
+    the JAX package's ``trainable_params`` dict."""
+    out = {}
+    for k, v in jax_params.items():
+        v = (_from_fields(_PARAM_TYPES[k], v) if k in _PARAM_TYPES
+             else np.asarray(v))
+        out[k] = tree.tree_map(
+            lambda x: torch.from_numpy(np.array(x)).requires_grad_(True), v)
+    return out
+
+
+def params_to_numpy(params) -> dict:
+    """A port parameter (or gradient) dict with numpy leaves, in the same
+    structure; its materials and lights have the JAX classes' fields."""
+    return tree.tree_map(lambda x: x.detach().cpu().numpy(), params)

@@ -1,9 +1,10 @@
-// LBVH closest-hit cast (K1) and fused two-light shadow query (K2).
+// LBVH closest-hit cast (K1), fused two-light shadow query (K2) and
+// single shadow query (K3).
 //
-// Replaces the Pallas TPU kernels _bvh_cast_kernel and _bvh_occlude2_kernel
-// (raytracer_tpu/render/pallas_engine.py:916 and :1033).  Their plain
-// PyTorch versions are bvh_cast_reference / bvh_occlude2_reference in
-// render/cuda_engine.py.
+// Replaces the Pallas TPU kernels _bvh_cast_kernel, _bvh_occlude2_kernel and
+// _bvh_occlude_kernel (raytracer_tpu/render/pallas_engine.py:916, :1033 and
+// :983).  Their plain PyTorch versions are bvh_cast_reference /
+// bvh_occlude2_reference / bvh_occlude_reference in render/cuda_engine.py.
 //
 // What bounds them on an H100: not FLOPs.  Each ray walks the implicit-heap
 // LBVH in its own order, so the warp diverges at every descend/skip choice,
@@ -131,6 +132,39 @@ bvh_occlude2_kernel(const float* __restrict__ o1, const float* __restrict__ d1,
   blk2_out[r] = blk2;
 }
 
+// K3: one any-hit query per thread.  A subtree is pruned when its slab
+// entry lies beyond max_t or the slab test misses; the walk ends as soon as
+// the ray is blocked (the loop condition, so no visit tests !blk).
+__global__ void __launch_bounds__(kThreads)
+bvh_occlude_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+                   const float* __restrict__ mt, int n_rays, Tables tb,
+                   bool* __restrict__ blk_out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const Ray ray = load_ray(ro, rd, r);
+  const float max_t = mt[r];
+  bool blk = false;
+
+  const int total = 2 * tb.n_leaves - 1;
+  int v = 1;
+  while (v > 0 && !blk) {
+    const int flat = total - v;
+    const float* node = tb.nodes + flat * NODE_WIDTH;
+    const Slab s = slab_terms(node, ray);
+    const float tmin = slab_entry(s);
+    const float tmax = slab_exit(s);
+    const bool hit = tmin <= tmax && tmax >= THRESHOLD && tmin <= max_t &&
+                     s.inside && node[6] > 0.0f;
+    const bool is_leaf = v >= tb.n_leaves;
+    if (hit && is_leaf) {
+      const int i = tb.ordering[flat];
+      if (i >= 0) blk = occlude_instance(i, s, ray, max_t, tb);
+    }
+    v = (hit && !is_leaf) ? 2 * v : skip_next(v);
+  }
+  blk_out[r] = blk;
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace rt
@@ -181,5 +215,25 @@ extern "C" int rt_bvh_occlude2(const void* o1, const void* d1,
       static_cast<const float*>(mt1), static_cast<const float*>(o2),
       static_cast<const float*>(d2), static_cast<const float*>(mt2), n_rays,
       tb, static_cast<bool*>(blk1), static_cast<bool*>(blk2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_bvh_occlude(const void* ro, const void* rd, const void* mt,
+                              int n_rays, const void* nodes,
+                              const void* ordering, int n_leaves,
+                              const void* inst_f, const void* inst_i,
+                              const void* tmpl, void* blk, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const rt::Tables tb{static_cast<const float*>(nodes),
+                      static_cast<const int*>(ordering), n_leaves,
+                      static_cast<const float*>(inst_f),
+                      static_cast<const int*>(inst_i),
+                      static_cast<const float*>(tmpl)};
+  rt::bvh_occlude_kernel<<<rt::blocks_for(n_rays), rt::kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ro), static_cast<const float*>(rd),
+      static_cast<const float*>(mt), n_rays, tb, static_cast<bool*>(blk));
   return static_cast<int>(cudaGetLastError());
 }

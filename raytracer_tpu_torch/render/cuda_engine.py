@@ -11,6 +11,8 @@ PyTorch version beside it, and a wrapper that dispatches by device:
 * K2 ``_bvh_occlude2_kernel`` -> :func:`bvh_occlude2` /
   :func:`bvh_occlude2_reference`: both shadow queries of a two-light round
   in one walk.
+* K3 ``_bvh_occlude_kernel`` -> :func:`bvh_occlude` /
+  :func:`bvh_occlude_reference`: one any-hit query (the per-light shadow).
 
 The tables keep the JAX package's layouts (``_IF_*``, ``_II_*``, ``_TF_*``)
 column for column.  The CUDA kernels walk the tree per thread (one ray each)
@@ -37,6 +39,7 @@ from .. import raymath as rm
 from ..accel import build_lbvh
 from ..scene import RenderConfig, Scene
 from .cast import Hit
+from .cast_vjp import cast_detached, occlude2_detached, occlude_detached
 from .geometry import WorldGeometry
 
 F32_NEG_BIG = -3.0e38
@@ -265,11 +268,15 @@ def _use_walk(cfg: RenderConfig, n_inst: int) -> bool:
         cfg.pallas_traversal == "auto" and n_inst > 256)
 
 
+@torch.no_grad()
 def prepare_cast(scene: Scene, geom: WorldGeometry,
                  cfg: RenderConfig) -> CastData:
-    """Tables + LBVH nodes for the walk (``prepare_pallas_cast``).  The
-    candidate-list cull the JAX package takes at <= 256 instances is not
-    ported and raises."""
+    """Tables + LBVH nodes for the walk (``prepare_pallas_cast``).  Runs
+    under ``no_grad``, the counterpart of the JAX package's
+    ``stop_gradient(scene)``: the tables are written in place and never
+    join a graph, since the casts' gradients come from their VJP rules.
+    The candidate-list cull the JAX package takes at <= 256 instances is
+    not ported and raises."""
     if cfg.pallas_kernel != "scalar":
         raise NotImplementedError(
             f"pallas_kernel={cfg.pallas_kernel!r} is not ported (ROADMAP.md "
@@ -496,24 +503,26 @@ def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
     )
 
 
-def bvh_occlude2_reference(o1, d1, mt1, o2, d2, mt2, data: CastData):
-    """Plain version of K2: ``(blocked1, blocked2)`` bool ``[R]`` — a query
-    is blocked iff some hit has ``THRESHOLD <= t <= max_t``."""
+def _occlude_reference(queries, data: CastData):
+    """Any-hit walk of ``queries`` (a list of ``(ro [R,3], rd [R,3], max_t
+    [R])``) over the leaves in walk order, sharing one leaf loop as K2
+    does.  A query is blocked iff some hit has ``THRESHOLD <= t <= max_t``.
+    Returns one bool ``[R]`` per query."""
     inst_f, inst_i, tmpl = (data.tables.inst_f32, data.tables.inst_i32,
                             data.tables.tmpl)
     is_box = (inst_i[:, _II_IS_BOX] > 0).cpu().tolist()
     tri_info = inst_i[:, [_II_TMPL_START, _II_TRI_COUNT]].cpu().tolist()
-    queries = []
-    for ro, rd, mt in ((o1, d1, mt1), (o2, d2, mt2)):
+    qs = []
+    for ro, rd, mt in queries:
         par, inv = _ray_recips(rd)
-        queries.append(dict(o=[ro[:, k] for k in range(3)],
-                            d=[rd[:, k] for k in range(3)], mt=mt,
-                            par=par, inv=inv,
-                            blk=torch.zeros(ro.shape[0], dtype=torch.bool,
-                                            device=ro.device)))
+        qs.append(dict(o=[ro[:, k] for k in range(3)],
+                       d=[rd[:, k] for k in range(3)], mt=mt,
+                       par=par, inv=inv,
+                       blk=torch.zeros(ro.shape[0], dtype=torch.bool,
+                                       device=ro.device)))
 
     for flat, i in _leaves(data):
-        for qy in queries:
+        for qy in qs:
             o, d, mt, blk = qy["o"], qy["d"], qy["mt"], qy["blk"]
             tns, tfs, inside = _slab_terms(data.nodes[flat], o, qy["inv"],
                                            qy["par"])
@@ -534,7 +543,21 @@ def bvh_occlude2_reference(o1, d1, mt1, o2, d2, mt2, data: CastData):
                                                     lo, ld)
                     blk = blk | (active & ok & (tt <= mt))
             qy["blk"] = blk
-    return queries[0]["blk"], queries[1]["blk"]
+    return [qy["blk"] for qy in qs]
+
+
+def bvh_occlude_reference(ro, rd, max_t, data: CastData):
+    """Plain version of K3: bool ``[R]``, blocked iff some hit has
+    ``THRESHOLD <= t <= max_t``."""
+    (blk,) = _occlude_reference([(ro, rd, max_t)], data)
+    return blk
+
+
+def bvh_occlude2_reference(o1, d1, mt1, o2, d2, mt2, data: CastData):
+    """Plain version of K2: ``(blocked1, blocked2)`` bool ``[R]``, each
+    equal to :func:`bvh_occlude_reference` of its query."""
+    b1, b2 = _occlude_reference([(o1, d1, mt1), (o2, d2, mt2)], data)
+    return b1, b2
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +643,35 @@ def bvh_cast(ro: torch.Tensor, rd: torch.Tensor, data: CastData, *,
 bvh_cast.launches = 0
 
 
+def bvh_occlude(ro, rd, max_t, data: CastData):
+    """K3 (``_bvh_occlude_kernel``): one any-hit query.  Rays ``[R, 3]``
+    f32, ``max_t`` ``[R]`` f32.  Returns bool ``[R]``."""
+    R = ro.shape[0]
+    dev = ro.device
+    _check("ro", ro, torch.float32, (R, 3), dev)
+    _check("rd", rd, torch.float32, (R, 3), dev)
+    _check("max_t", max_t, torch.float32, (R,), dev)
+    if _device_kind(ro) == "cpu":
+        return bvh_occlude_reference(ro, rd, max_t, data)
+    _check_data(data, dev)
+    from . import kernels
+
+    blk = torch.empty(R, dtype=torch.bool, device=dev)
+    if R > 0:
+        tab = data.tables
+        err = kernels.library().rt_bvh_occlude(
+            _ptr(ro), _ptr(rd), _ptr(max_t), R, _ptr(data.nodes),
+            _ptr(data.ordering), data.n_leaves, _ptr(tab.inst_f32),
+            _ptr(tab.inst_i32), _ptr(tab.tmpl), _ptr(blk), dev.index,
+            kernels.stream_handle(dev))
+        _raise_on(err, "bvh_occlude")
+        bvh_occlude.launches += 1
+    return blk
+
+
+bvh_occlude.launches = 0
+
+
 def bvh_occlude2(o1, d1, mt1, o2, d2, mt2, data: CastData):
     """K2 (``_bvh_occlude2_kernel``): two any-hit queries over one walk.
     Rays ``[R, 3]`` f32, ``max_t`` ``[R]`` f32.  Returns two bool ``[R]``."""
@@ -652,29 +704,30 @@ bvh_occlude2.launches = 0
 
 
 def make_cuda_cast(data: CastData, cfg: RenderConfig):
-    """The engine's cast: ``cast(ro, rd) -> Hit`` with an ``occlude2``
-    attribute.  ``engine="cuda"`` goes through the dispatching wrappers;
-    ``engine="torch"`` calls the plain versions on any device."""
+    """The engine's cast: ``cast(ro, rd) -> Hit`` with ``occlude(ro, rd,
+    max_t)`` and ``occlude2(o1, d1, mt1, o2, d2, mt2)`` attributes, under
+    the autodiff rules of ``cast_vjp``.  ``engine="cuda"`` goes through the
+    dispatching wrappers; ``engine="torch"`` calls the plain versions on any
+    device."""
     if cfg.engine == "cuda":
-        cast_fn, occ2_fn = bvh_cast, bvh_occlude2
+        queries = bvh_cast, bvh_occlude, bvh_occlude2
     elif cfg.engine == "torch":
-        cast_fn, occ2_fn = bvh_cast_reference, bvh_occlude2_reference
+        queries = (bvh_cast_reference, bvh_occlude_reference,
+                   bvh_occlude2_reference)
     else:
         raise ValueError(f"unknown engine {cfg.engine!r} "
                          "(expected 'torch' or 'cuda')")
+    cast_q, occ_q, occ2_q = queries
 
     def cast(ro, rd):
-        return cast_fn(ro.contiguous(), rd.contiguous(), data)
+        return cast_detached(cast_q, ro, rd, data)
+
+    def occlude(ro, rd, max_t):
+        return occlude_detached(occ_q, ro, rd, max_t, data)
 
     def occlude2(o1, d1, mt1, o2, d2, mt2):
-        R = o1.shape[0]
+        return occlude2_detached(occ2_q, o1, d1, mt1, o2, d2, mt2, data)
 
-        def mt(x):
-            x = torch.as_tensor(x, dtype=torch.float32, device=o1.device)
-            return x.expand(R).contiguous()
-
-        return occ2_fn(o1.contiguous(), d1.contiguous(), mt(mt1),
-                       o2.contiguous(), d2.contiguous(), mt(mt2), data)
-
+    cast.occlude = occlude
     cast.occlude2 = occlude2
     return cast

@@ -1,11 +1,12 @@
 """Frame assembly: camera rays in 32x32 blocks, one shading round, clamp.
 
-Counterpart of ``raytracer_tpu/render/engine.py`` for the forward slice:
+Counterpart of ``raytracer_tpu/render/engine.py`` for opaque worlds:
 ``render_frame`` -> ``_frame_rays_blocked`` (pad to a multiple of 32, pad
 pixels keep origin 0 and dir (0,0,1), reorder into 32x32 screen blocks so
 neighbouring rays share a frustum) -> ``render_rays_stats`` -> round 0 of
 ``_radiance_dense`` -> unblock and crop.  Worlds with a reflective or
-refractive material spawn bounce rounds, which are not ported.
+refractive material spawn bounce rounds, which are not ported.  Frames are
+differentiable: the casts carry their own VJP rules (``cast_vjp.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ BLOCK = 32  # screen-space tile edge: one 32x32 block of rays
 
 def check_config(scene: Scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any setting
-    the forward slice does not port (never a silent switch of path)."""
+    the port does not cover yet (never a silent switch of path)."""
     if cfg.any_reflective or cfg.any_refractive:
         raise NotImplementedError(
             "worlds with reflective or refractive materials spawn bounce "
@@ -73,13 +74,20 @@ def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
     Returns ``(img, dropped)``; nothing is dropped without tile caps."""
     acc, dropped = _radiance_dense(scene, geom, cast_fn, cfg,
                                    ray_o.reshape(-1, 3), ray_d.reshape(-1, 3))
-    img = torch.clamp(acc, max=1.0).reshape(ray_o.shape[:-1] + (4,))
-    return img, dropped
+    return clamp_frame(acc).reshape(ray_o.shape[:-1] + (4,)), dropped
+
+
+def clamp_frame(acc):
+    """``min(acc, 1)``, the canvas write's clamp.  ``torch.minimum``, not
+    ``clamp``: at ``acc == 1`` it passes half the gradient, as
+    ``jnp.minimum`` does (``clamp`` passes all of it)."""
+    return torch.minimum(acc, acc.new_ones(()))
 
 
 def make_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig) -> CastFn:
     """The engine's cast for ``cfg.engine`` (``"cuda"`` kernels or the
-    ``"torch"`` plain versions), with its ``occlude2`` query."""
+    ``"torch"`` plain versions), with its ``occlude``/``occlude2``
+    queries."""
     return make_cuda_cast(prepare_cast(scene, geom, cfg), cfg)
 
 

@@ -88,6 +88,9 @@ def library() -> ctypes.CDLL:
     lib.rt_bvh_occlude2.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
                                     vp, vp, vp, vp, vp, ci, vp]
     lib.rt_bvh_occlude2.restype = ci
+    lib.rt_bvh_occlude.argtypes = [vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
+                                   vp, ci, vp]
+    lib.rt_bvh_occlude.restype = ci
     return lib
 
 

@@ -1,10 +1,16 @@
-"""Phong shading with the fused two-light shadow query.
+"""Phong shading with shadowed point and directional lights.
 
-Counterpart of ``raytracer_tpu/render/shading.py`` for opaque worlds with one
-point and one directional light: ``illuminate = Ke + Ka*ambience + sum over
-lights of phong(...)``, each light's shadow decided by one any-hit query, both
-queries answered by one fused walk (K2).  The transmissive shadow march and
-the per-light path are not ported.
+Counterpart of ``raytracer_tpu/render/shading.py`` for opaque worlds:
+``illuminate = Ke + Ka*ambience + sum over lights of phong(...)``, each
+light's shadow decided by one any-hit query.  With exactly 1 point + 1
+directional light and ``fused_shadows`` on, one walk answers both queries
+(K2); otherwise each light sends its own query (K3), the opaque fast path of
+``_march_shadow``.  The transmissive shadow march is not ported.
+
+Where the JAX package takes ``jnp.maximum``/``jnp.minimum`` against a
+constant, this module takes ``torch.maximum``/``torch.minimum`` against a
+tensor, never ``torch.clamp``: the values are equal, but at a tie clamp
+passes the whole gradient where JAX passes half.
 """
 
 from __future__ import annotations
@@ -18,9 +24,16 @@ from ..scene import Materials, RenderConfig, Scene
 from .cast import CastFn, Hit
 
 
+def _relu(x):
+    """``max(x, 0)`` with JAX's 0.5 subgradient at ``x == 0``."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def gather_material_rows(mats: Materials, mat_idx: torch.Tensor) -> Materials:
     """Per-ray material rows by exact index gather (the JAX package's one-hot
-    matmul at HIGHEST precision selects the same f32 values)."""
+    matmul at HIGHEST precision selects the same f32 values).  Its backward
+    is ``index_put_`` with accumulate, whose order of additions torch does
+    not fix on CUDA: compare material gradients by tolerance."""
     idx = mat_idx.long()
     return dataclasses.replace(
         mats, ke=mats.ke[idx], ka=mats.ka[idx], kd=mats.kd[idx],
@@ -35,33 +48,38 @@ def distance_attenuation(scene: Scene, dist):
     lin = scene.dist_atten[1]
     q = scene.dist_atten[2]
     quad = c + lin * dist + q * dist * dist
-    return torch.where(quad < 1.0, 1.0, 1.0 / torch.clamp(quad, min=1.0))
+    return torch.where(quad < 1.0, 1.0,
+                       1.0 / torch.maximum(quad, quad.new_ones(())))
 
 
 def phong_term(rmats: Materials, incoming, ray_dir, dir_to_light, normal):
     """One light's Phong contribution (reference phong.cu:14-33):
     ``(max(L.N, 0) Kd + max(-reflect(-L, N).V, 0)^alpha Ks) * incoming``,
     with ``0^0 = 1`` for ``alpha = 0``."""
-    norm_dot = torch.clamp(rm.dot(dir_to_light, normal), min=0.0)
+    norm_dot = _relu(rm.dot(dir_to_light, normal))
     diffuse = norm_dot[..., None] * rmats.kd
     reflected = rm.reflect(-dir_to_light, normal)
     reflect_dot = rm.dot(-reflected, ray_dir)
-    spec = rm.safe_pow(torch.clamp(reflect_dot, min=0.0),
-                       rmats.alpha)[..., None] * rmats.ks
+    spec = rm.safe_pow(_relu(reflect_dot), rmats.alpha)[..., None] * rmats.ks
     return (diffuse + spec) * incoming
 
 
 def check_lights(scene: Scene, cfg: RenderConfig) -> None:
-    """The slice shades opaque worlds with exactly 1 point + 1 directional
-    light through the fused query; anything else raises."""
-    n_point = scene.lights.point_pos.shape[0]
-    n_dir = scene.lights.dir_dir.shape[0]
-    if n_point != 1 or n_dir != 1 or not cfg.fused_shadows:
+    """Any number of point and directional lights shade, fused or per
+    light; only a refractive world, whose shadows march through
+    transmissive blockers, raises."""
+    if cfg.any_refractive:
         raise NotImplementedError(
-            f"{n_point} point + {n_dir} directional lights with "
-            f"fused_shadows={cfg.fused_shadows}: only the fused 1 + 1 path "
-            "is ported (ROADMAP.md Queue 1 item 2: the per-light shadow "
-            "path with K3)")
+            "shadows through refractive materials need the transmissive "
+            "shadow march, which is not ported (ROADMAP.md Queue 1 item 5: "
+            "refraction)")
+
+
+def _use_fused(scene: Scene, cfg: RenderConfig) -> bool:
+    """The JAX package's condition for the fused two-light round."""
+    return (cfg.fused_shadows and not cfg.any_refractive
+            and scene.lights.point_pos.shape[0] == 1
+            and scene.lights.dir_dir.shape[0] == 1)
 
 
 def shadow_rays(scene: Scene, hit_pos, active):
@@ -79,25 +97,54 @@ def shadow_rays(scene: Scene, hit_pos, active):
             o_park + rm.THRESHOLD * dir2, dir2)
 
 
+def march_shadow(cast_fn: CastFn, origin, dir_unit, max_t, light_col,
+                 active):
+    """The light arriving at ``origin`` [R,3] from ``light_col`` along
+    ``dir_unit``: the opaque fast path of ``_march_shadow``, one any-hit
+    query (K3) -- a blocker within ``max_t`` kills the light.  Inactive
+    lanes park at 1e30 like the fused round's."""
+    dir_unit = dir_unit.expand(origin.shape)
+    origin = torch.where(active[..., None], origin, 1e30)
+    blocked = active & cast_fn.occlude(origin + rm.THRESHOLD * dir_unit,
+                                       dir_unit, max_t)
+    lit = light_col.expand(origin.shape[:-1] + (4,))
+    return torch.where(blocked[..., None], 0.0, lit)
+
+
 def illuminate(scene: Scene, cast_fn: CastFn, cfg: RenderConfig, ray_o,
                ray_d, hit: Hit, normal, rmats: Materials, active):
-    """Local shading at a hit point: the fused branch of the JAX package's
-    ``illuminate`` (one dual-query walk answers both shadow rays)."""
+    """Local shading at a hit point (reference phong.cu:40-67): the fused
+    two-light round when it applies, else one shadow query per light."""
     check_lights(scene, cfg)
     hit_pos = ray_o + hit.t[..., None] * ray_d
     col = rmats.ke + rmats.ka * scene.ambience
+    lights = scene.lights
 
-    o1, dir1, dist, o2, dir2 = shadow_rays(scene, hit_pos, active)
-    b1, b2 = cast_fn.occlude2(o1, dir1, dist, o2, dir2, float("inf"))
-    b1 = active & b1
-    b2 = active & b2
-    lcol1 = scene.lights.point_col[0]
-    dir_to_light2 = -scene.lights.dir_dir[0]  # raw: Phong takes it unnormalized
-    datten = distance_attenuation(scene, dist)
-    zero = torch.zeros((), dtype=torch.float32, device=hit_pos.device)
-    incoming1 = datten[..., None] * torch.where(b1[..., None], zero, lcol1)
-    col = col + phong_term(rmats, incoming1, ray_d, dir1, normal)
-    lcol2 = scene.lights.dir_col[0]
-    incoming2 = torch.where(b2[..., None], zero, lcol2)
-    col = col + phong_term(rmats, incoming2, ray_d, dir_to_light2, normal)
+    if _use_fused(scene, cfg):
+        o1, dir1, dist, o2, dir2 = shadow_rays(scene, hit_pos, active)
+        b1, b2 = cast_fn.occlude2(o1, dir1, dist, o2, dir2, float("inf"))
+        b1 = active & b1
+        b2 = active & b2
+        dir_to_light2 = -lights.dir_dir[0]  # raw: Phong takes it unnormalized
+        datten = distance_attenuation(scene, dist)
+        zero = hit_pos.new_zeros(())
+        incoming1 = datten[..., None] * torch.where(b1[..., None], zero,
+                                                    lights.point_col[0])
+        col = col + phong_term(rmats, incoming1, ray_d, dir1, normal)
+        incoming2 = torch.where(b2[..., None], zero, lights.dir_col[0])
+        col = col + phong_term(rmats, incoming2, ray_d, dir_to_light2, normal)
+        return col
+
+    for i in range(lights.point_pos.shape[0]):
+        disp = lights.point_pos[i] - hit_pos
+        dist = rm.norm(disp)
+        dir_to_light = rm.normalize(disp)
+        incoming = distance_attenuation(scene, dist)[..., None] * march_shadow(
+            cast_fn, hit_pos, dir_to_light, dist, lights.point_col[i], active)
+        col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal)
+    for i in range(lights.dir_dir.shape[0]):
+        dir_to_light = -lights.dir_dir[i]  # raw (reference light.cu:74-77)
+        incoming = march_shadow(cast_fn, hit_pos, rm.normalize(dir_to_light),
+                                float("inf"), lights.dir_col[i], active)
+        col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal)
     return col

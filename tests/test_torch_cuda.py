@@ -7,8 +7,10 @@ import.  Run on a GPU machine with::
     python -m pytest tests/test_torch_cuda.py -q -m gpu
 
 K1 must give the plain version's valid, triangle and material exactly, t at
-rtol 1e-5 and normals/uv at atol 1e-5; K2's masks must be identical; a frame
-through both kernels must equal the ``"torch"`` engine at atol 1e-5."""
+rtol 1e-5 and normals/uv at atol 1e-5; K2's and K3's masks must be identical
+(K3's also to K2's); a frame through the kernels must equal the ``"torch"``
+engine at atol 1e-5, the per-light frame (K3) the fused one bit for bit; and
+the loss gradients of both engines must agree at rtol 1e-4 / atol 1e-6."""
 
 import os
 
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 import raytracer_tpu_torch as rtt
+from raytracer_tpu_torch import diff, tree
 from raytracer_tpu_torch.builder import scale_camera
 from raytracer_tpu_torch.render import cuda_engine as ce
 from raytracer_tpu_torch.render.engine import _frame_rays_blocked, render_frame
@@ -75,15 +78,20 @@ def test_bvh_cast_kernel_matches_plain(gpu_world, tables, rays):
     torch.testing.assert_close(hk.uv, hp.uv, rtol=0.0, atol=1e-5)
 
 
-@pytest.mark.parametrize("tables", ["box", "template"])
-def test_bvh_occlude2_kernel_matches_plain(gpu_world, tables):
-    data = gpu_world["data"]["box"]
+def _shadow_queries(gpu_world):
+    """The primary frame's two shadow queries: to the point light (finite
+    max_t) and along the directional light (+inf), as K2's six inputs."""
     ro, rd = gpu_world["rays"]["primary"]
-    hit = ce.bvh_cast(ro, rd, data)
+    hit = ce.bvh_cast(ro, rd, gpu_world["data"]["box"])
     t = torch.where(hit.valid, hit.t, 1.0)
     o1, d1, dist, o2, d2 = shadow_rays(gpu_world["scene"],
                                        ro + t[:, None] * rd, hit.valid)
-    q = (o1, d1, dist, o2, d2.contiguous(), torch.full_like(dist, np.inf))
+    return (o1, d1, dist, o2, d2.contiguous(), torch.full_like(dist, np.inf))
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+def test_bvh_occlude2_kernel_matches_plain(gpu_world, tables):
+    q = _shadow_queries(gpu_world)
     data = gpu_world["data"][tables]
     bk = ce.bvh_occlude2(*q, data)
     bp = ce.bvh_occlude2_reference(*q, data)
@@ -91,6 +99,49 @@ def test_bvh_occlude2_kernel_matches_plain(gpu_world, tables):
     for a, b in zip(bk, bp):
         assert torch.equal(a, b)
         assert 0 < int(a.sum()) < a.numel()
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("max_t", ["finite", "inf"])
+def test_bvh_occlude_kernel_matches_plain(gpu_world, tables, max_t):
+    q = _shadow_queries(gpu_world)
+    data = gpu_world["data"][tables]
+    k = 0 if max_t == "finite" else 1
+    o, d, mt = q[3 * k: 3 * k + 3]
+    before = ce.bvh_occlude.launches
+    bk = ce.bvh_occlude(o, d, mt, data)
+    assert ce.bvh_occlude.launches == before + 1
+    bp = ce.bvh_occlude_reference(o, d, mt, data)
+    pair = ce.bvh_occlude2(*q, data)
+    torch.cuda.synchronize()
+    assert bk.dtype == torch.bool and torch.equal(bk, bp)
+    assert torch.equal(bk, pair[k])
+    assert 0 < int(bk.sum()) < bk.numel()
+
+
+def test_per_light_frame_equals_fused(gpu_world):
+    s, cam, cfg = gpu_world["scene"], gpu_world["cam"], gpu_world["cfg"]
+    fused = render_frame(s, cam, cfg)
+    n3 = ce.bvh_occlude.launches
+    img = render_frame(s, cam, cfg.replace(fused_shadows=False))
+    assert ce.bvh_occlude.launches == n3 + 2  # one query per light
+    assert torch.equal(img, fused)
+
+
+def test_train_grads_cuda_match_torch_engine(gpu_world):
+    s, cam, cfg = gpu_world["scene"], gpu_world["cam"], gpu_world["cfg"]
+    target = torch.zeros(cfg.height, cfg.width, 4, device=cam.pos.device)
+    grads = {}
+    for engine in ("cuda", "torch"):
+        params = diff.trainable_params(s, cam)
+        loss = diff.make_loss_fn(s, cam, cfg.replace(engine=engine),
+                                 target)(params)
+        grads[engine] = diff.grad_of(loss, params)
+    assert float(grads["cuda"]["cam_pos"].abs().max()) > 0.0
+    # the atomic sums of the gather backward may add in another order
+    for a, b in zip(tree.leaves(grads["cuda"]), tree.leaves(grads["torch"])):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
 def test_frame_cuda_engine_matches_torch_engine(gpu_world):

@@ -2,12 +2,14 @@
 
 ``render_frame(engine="torch")`` of the port against the JAX package's
 ``render_frame(engine="pallas")`` (Pallas in interpret mode) on terrain8 at
-64x48, atol 1e-5; the ``"cuda"`` engine on CPU tensors goes through the
-kernel wrappers, which take the plain versions there, and must give the same
-frame.  Also the frame plumbing (block order, u8 conversion), the CLI, and
-the settings the slice does not port (they raise, never switch path)."""
+64x48, atol 1e-5: the fused two-light round, the per-light round
+(``fused_shadows=False``, K3) and ``terrain8_lights3`` (2 point + 1
+directional light, K3).  The ``"cuda"`` engine on CPU tensors goes through
+the kernel wrappers, which take the plain versions there, and must give the
+same frame; the per-light frame must equal the fused one bit for bit.  Also
+the frame plumbing (block order, u8 conversion), the CLI, and the settings
+the port does not cover yet (they raise, never switch path)."""
 
-import dataclasses
 import os
 
 import jax
@@ -22,23 +24,24 @@ from raytracer_tpu.render import render_frame as jrender_frame
 from raytracer_tpu.scene import device_scene
 
 import raytracer_tpu_torch as rtt
-from raytracer_tpu_torch import cli, convert
-from raytracer_tpu_torch.render import engine
+from raytracer_tpu_torch import cli, convert, diff
+from raytracer_tpu_torch.render import engine, shading
 from raytracer_tpu_torch.render.engine import frame_to_u8, render_frame
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORLD = os.path.join(REPO, "raytracer_tpu_torch", "worlds", "terrain8.json")
+WORLDS = os.path.join(REPO, "raytracer_tpu_torch", "worlds")
+WORLD = os.path.join(WORLDS, "terrain8.json")
+LIGHTS3 = os.path.join(WORLDS, "terrain8_lights3.json")
 W, H = 64, 48
 
 
-@pytest.fixture(scope="module")
-def frames():
-    jw = jrt.generate(WORLD)
+def _frames(path, **change):
+    jw = jrt.generate(path)
     jcam = jax.tree_util.tree_map(
         jnp.asarray, jscale_camera(jw.camera, W, jw.config.width))
-    jcfg = jw.config.replace(width=W, height=H, engine="pallas")
+    jcfg = jw.config.replace(width=W, height=H, engine="pallas", **change)
     jimg = np.asarray(jax.jit(jrender_frame, static_argnames=("cfg",))(
         device_scene(jw.scene), jcam, jcfg))
     scene = convert.scene_from_numpy(jw.scene)
@@ -46,6 +49,18 @@ def frames():
                                                   jw.config.width))
     cfg = convert.config_from_jax(jcfg).replace(engine="torch")
     return dict(jimg=jimg, scene=scene, cam=cam, cfg=cfg)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return _frames(WORLD)
+
+
+@pytest.fixture(scope="module", params=["per_light", "lights3"])
+def per_light(request):
+    if request.param == "per_light":
+        return _frames(WORLD, fused_shadows=False)
+    return _frames(LIGHTS3)
 
 
 def test_frame_matches_jax_pallas(frames):
@@ -64,6 +79,21 @@ def test_cuda_engine_on_cpu_equals_torch_engine(frames):
     b = render_frame(frames["scene"], frames["cam"],
                      frames["cfg"].replace(engine="cuda"))
     assert torch.equal(a, b)
+
+
+def test_per_light_frame_matches_jax_pallas(per_light, frames):
+    """The per-light round (K3 per light) against the JAX package; on
+    terrain8 it must also equal the fused round bit for bit, as the JAX
+    package asserts (``tests/test_pallas.py:260-277``)."""
+    f = per_light
+    img = render_frame(f["scene"], f["cam"], f["cfg"].replace(engine="cuda"))
+    np.testing.assert_allclose(img.numpy(), f["jimg"], rtol=0, atol=1e-5)
+    assert torch.equal(img, render_frame(f["scene"], f["cam"], f["cfg"]))
+    if not f["cfg"].fused_shadows:
+        fused = render_frame(frames["scene"], frames["cam"], frames["cfg"])
+        assert torch.equal(img, fused)
+    else:  # the second point light changes the frame
+        assert not np.allclose(f["jimg"], frames["jimg"], atol=1e-3)
 
 
 @pytest.mark.parametrize("hw", [(64, 64), (40, 70)])
@@ -98,20 +128,21 @@ def test_frame_to_u8_truncates():
     assert frame_to_u8(img).tolist() == [[[0, 254, 255, 0]]]
 
 
-def _reflective_world(tmp_path):
+def _material_world(tmp_path, change):
     import json
 
     with open(WORLD) as fh:
         doc = json.load(fh)
-    doc["cubes"][0]["Kr"] = [0.3, 0.3, 0.3, 0.3]
-    p = tmp_path / "refl.json"
+    key = "Kr" if change == "reflective" else "Kt"
+    doc["cubes"][0][key] = [0.3, 0.3, 0.3, 0.3]
+    p = tmp_path / f"{change}.json"
     p.write_text(json.dumps(doc))
     return str(p)
 
 
 @pytest.mark.parametrize("change", [
     "traversal_cull", "kernel_mxu", "edge_aware", "spp", "tile_cap",
-    "fused_off", "two_point_lights", "texture", "reflective"])
+    "texture", "reflective", "refractive", "vertex grads"])
 def test_unported_settings_raise(frames, tmp_path, change):
     scene, cam, cfg = frames["scene"], frames["cam"], frames["cfg"]
     cfg = cfg.replace(engine="cuda", width=8, height=8)
@@ -127,19 +158,21 @@ def test_unported_settings_raise(frames, tmp_path, change):
         cfg = cfg.replace(wavefront_tile_cap=0.5)
     elif change == "texture":
         cfg = cfg.replace(texture_mapping=True)
-    elif change == "fused_off":
-        cfg = cfg.replace(fused_shadows=False)
-    elif change == "two_point_lights":
-        lights = dataclasses.replace(
-            scene.lights, point_pos=scene.lights.point_pos.repeat(2, 1),
-            point_col=scene.lights.point_col.repeat(2, 1))
-        scene = dataclasses.replace(scene, lights=lights)
+    elif change == "vertex grads":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            diff.trainable_params(scene, cam, include_vertices=True)
+        return
     else:
-        w = rtt.generate(_reflective_world(tmp_path))
+        w = rtt.generate(_material_world(tmp_path, change))
         scene = rtt.to_device(w.scene, "cpu")
         cfg = w.config.replace(engine="cuda", width=8, height=8)
+        assert cfg.any_reflective == (change == "reflective")
+        assert cfg.any_refractive == (change == "refractive")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(scene, cam, cfg)
+    if change == "refractive":  # the shadow march raises on its own too
+        with pytest.raises(NotImplementedError, match="item 5"):
+            shading.check_lights(scene, cfg)
 
 
 def test_cli_writes_png_on_cpu(tmp_path, capsys):

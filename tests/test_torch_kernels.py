@@ -1,8 +1,9 @@
-"""Plain versions of K1 and K2 in the PyTorch port against the JAX package's
-Pallas kernels (interpret mode on the CPU).
+"""Plain versions of K1, K2 and K3 in the PyTorch port against the JAX
+package's Pallas kernels (interpret mode on the CPU).
 
-K1 (``bvh_cast``) against ``make_pallas_cast(...)`` and K2
-(``bvh_occlude2``) against its ``.occlude2``, on terrain8 with box tables and
+K1 (``bvh_cast``) against ``make_pallas_cast(...)``, K2 (``bvh_occlude2``)
+against its ``.occlude2`` and K3 (``bvh_occlude``) against its ``.occlude``,
+on terrain8 with box tables and
 with template tables (``build_tables(exact_uv=True)``: every instance takes
 the triangle loop while the kernel runs with ``exact_uv=False``).  Rays: a
 128x96 primary frame and 1,024 seeded random rays, handed to both packages
@@ -134,19 +135,23 @@ def test_wrappers_check_inputs(setup):
     mt = torch.ones(o.shape[0])
     with pytest.raises(ValueError):
         ce.bvh_occlude2(o, d, mt[:-1], o, d, mt, data)
+    with pytest.raises(ValueError):
+        ce.bvh_occlude(o, d, mt[:-1], data)
+    with pytest.raises(TypeError):
+        ce.bvh_occlude(o, d, mt.double(), data)
     # the CUDA path is not taken for CPU tensors: no counter moves
-    n1, n2 = ce.bvh_cast.launches, ce.bvh_occlude2.launches
+    kernels = (ce.bvh_cast, ce.bvh_occlude2, ce.bvh_occlude)
+    before = [k.launches for k in kernels]
     ce.bvh_cast(o, d, data)
     ce.bvh_occlude2(o, d, mt, o, d, mt, data)
-    assert (ce.bvh_cast.launches, ce.bvh_occlude2.launches) == (n1, n2)
+    ce.bvh_occlude(o, d, mt, data)
+    assert [k.launches for k in kernels] == before
 
 
-@pytest.mark.parametrize("tables", ["box", "template"])
-def test_bvh_occlude2_matches_pallas(setup, tables):
-    """Both shadow queries of the primary frame: to the point light (finite
-    max_t) and along the directional light (+inf), plus the random rays with
-    a finite max_t."""
-    jcast, data = setup["casts"][tables]
+def _shadow_queries(setup):
+    """Both shadow queries of the primary frame, each followed by the random
+    rays: to the point light (finite max_t; the random rays 4.0) and along
+    the directional light (+inf)."""
     o, d = setup["rays"]["primary"]
     jh = setup["casts"]["box"][0](jnp.asarray(o), jnp.asarray(d))
     valid = np.asarray(jh.valid)
@@ -170,11 +175,39 @@ def test_bvh_occlude2_matches_pallas(setup, tables):
     q2 = (np.concatenate([o2, ro]), np.concatenate([d2, rd[::-1]]),
           np.concatenate([np.full(dist.shape, np.inf, np.float32),
                           np.full(mt_r.shape, np.inf, np.float32)]))
+    return q1, q2
+
+
+def _torch(q):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in q]
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+def test_bvh_occlude2_matches_pallas(setup, tables):
+    jcast, data = setup["casts"][tables]
+    q1, q2 = _shadow_queries(setup)
     jb1, jb2 = jcast.occlude2(*[jnp.asarray(x) for x in q1],
                               *[jnp.asarray(x) for x in q2])
-    tb1, tb2 = ce.bvh_occlude2(*[torch.from_numpy(np.ascontiguousarray(x))
-                                 for x in q1 + q2], data)
+    tb1, tb2 = ce.bvh_occlude2(*_torch(q1), *_torch(q2), data)
     for j, t_, name in ((jb1, tb1, "query 1"), (jb2, tb2, "query 2")):
         j = np.asarray(j)
         assert 0 < j.sum() < j.size
         _mismatch_ok(j != t_.numpy(), name)
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("max_t", ["finite", "inf"])
+def test_bvh_occlude_matches_pallas(setup, tables, max_t):
+    """K3 against ``.occlude`` (``_bvh_occlude_kernel``) on one query:
+    the point-light query (finite max_t) or the directional one (+inf);
+    K3's mask also equals that query of K2 exactly."""
+    jcast, data = setup["casts"][tables]
+    q1, q2 = _shadow_queries(setup)
+    q = q1 if max_t == "finite" else q2
+    j = np.asarray(jcast.occlude(*[jnp.asarray(x) for x in q]))
+    t_ = ce.bvh_occlude(*_torch(q), data)
+    assert t_.dtype == torch.bool and t_.shape == (q[0].shape[0],)
+    assert 0 < j.sum() < j.size
+    _mismatch_ok(j != t_.numpy(), f"K3 {max_t}")
+    pair = ce.bvh_occlude2(*_torch(q1), *_torch(q2), data)
+    assert torch.equal(t_, pair[0] if max_t == "finite" else pair[1])

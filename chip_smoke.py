@@ -30,7 +30,35 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    kd * 1.3 target lowering the loss; timings: fwd+bwd step ms and Mrays/s
    of each engine at 1080p, K3 against its plain version; then a
    torch.profiler trace of 3 fwd+bwd steps at 1080p: kernels per step,
-   device busy time, idle share and the kernels that take the most time.
+   device busy time, idle share and the kernels that take the most time;
+9. terrain6 (204 instances: the candidate-list cull): K4 (closest hit over
+   the tile lists) against its plain version on the 640x480 primary rays and
+   the 65,536 random rays, box and template tables, and K5 (any hit) on that
+   frame's point-light and directional shadow queries, both table kinds --
+   max abs err 0 -- with the share of tiles whose lists overflow;
+10. K6 (the MXU cast) against its plain version on the 640x480 primary rays,
+   the random rays and the point-light shadow rays (parked lanes: the dense
+   sweep): t, id, u, v identical;
+11. terrain6 frames on the cull and on the MXU cast at 640x480 and
+   1920x1080, "cuda" against "torch", with every launch counter reset just
+   before: K4/K5 (or K6) launched, every other kernel not;
+12. the cull frame against the LBVH walk's frame, on terrain6 and on
+   terrain8 (pallas_traversal="cull");
+13. the cull's fwd+bwd step at 1920x1080 (launch counters reset just
+   before), grads "cuda" against "torch" at rtol 1e-4 / atol 1e-6; timings
+   of the frames, the step and K4/K5/K6 against their plain versions, and
+   torch.profiler summaries of the terrain6 frames on both paths and of
+   the cull's step.
+
+Each kernel's bound is the least time the card could take for its work at
+the main path's shapes: the larger of the bytes it must move (inputs read
+once, outputs written once) over 3.35 TB/s and its FP32 operations over
+67 TFLOP/s (the H100 SXM's published peaks at 700 W).  For the walks and the
+lists (K1-K5) the operations are what this run's rays reach, counted by the
+plain versions (``work=``: the nodes, boxes and triangles each ray's kernel
+walk tests); for K6, the live columns of each tile (its staged columns with
+a triangle, or every triangle on a dense tile) at the operations a column
+needs.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -56,7 +84,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORLDS = os.path.join(ROOT, "raytracer_tpu_torch", "worlds")
 WORLD = os.path.join(WORLDS, "terrain8.json")
 WORLD_LIGHTS3 = os.path.join(WORLDS, "terrain8_lights3.json")
+WORLD6 = os.path.join(WORLDS, "terrain6.json")
 SOURCE = "raytracer_tpu_torch/csrc/bvh_kernels.cu"
+SOURCE_CULL = "raytracer_tpu_torch/csrc/cull_kernels.cu"
+SOURCE_MXU = "raytracer_tpu_torch/csrc/mxu_kernel.cu"
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
+# FP32 operations (arithmetic and comparisons) of one unit of work,
+# counted from the sources (csrc/bvh_walk.cuh, csrc/mxu_kernel.cu): a slab
+# test (6 per axis, entry/exit, the vote), a box-face evaluation, a ray
+# taken into an instance frame (two quaternion rotations), a template
+# triangle test, the final normal re-normalization of a closest-hit ray,
+# and one ray against one live K6 column: the five dot products without
+# the terms that are zero by construction (rd6 = [d, o x d, 0, 0] against
+# the edges: 6 terms each; rp8 = [o, d, 1, 0] against the plane numerator:
+# 4, and the denominator: 3; 45 operations), then the barycentric and
+# hit-time tests (17).
+OPS = {"slab": 25, "box": 7, "inst": 129, "tri": 89, "write": 11,
+       "mxu_col": 62}
 SIZES = [(640, 480), (1920, 1080)]
 N_RANDOM = 65536
 REPS = 10
@@ -114,7 +159,39 @@ def _compare_hits(label, hk, hp):
     return err
 
 
-def _profile(step, smi, steps=3):
+def _nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _bound(nbytes, ops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the FP32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def _work(reference, *args):
+    """Per-ray work counts (``cuda_engine.WORK_COLUMNS``) of a kernel on
+    ``args``, from its plain version."""
+    work = torch.zeros(args[0].shape[0], 4, dtype=torch.int64,
+                       device=args[0].device)
+    reference(*args, work=work)
+    return work
+
+
+def _work_ops(work, closest_hit):
+    """FP32 operations of a walk or list kernel from its per-ray work
+    counts."""
+    slab, box, inst, tri = work.sum(0).tolist()
+    ops = (slab * OPS["slab"] + box * OPS["box"] + inst * OPS["inst"]
+           + tri * OPS["tri"])
+    return ops + (work.shape[0] * OPS["write"] if closest_hit else 0)
+
+
+def _profile(step, smi, steps=3, label="fwd+bwd"):
     """Trace ``steps`` calls of ``step`` with torch.profiler; print the
     kernels per step, device busy time, idle share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -143,11 +220,325 @@ def _profile(step, smi, steps=3):
            "idle_share": 1.0 - busy_ms / wall_ms,
            "kernels_per_step": len(kernels) / steps,
            "top_ms_per_step": [[k[:100], v / steps] for k, v in top]}
-    print(f"profile fwd+bwd [{smi}]: wall {wall_ms:.3f} ms/step, device busy "
+    print(f"profile {label} [{smi}]: wall {wall_ms:.3f} ms/step, device busy "
           f"{busy_ms:.3f} ms, idle share {out['idle_share']:.3f}, "
           f"{out['kernels_per_step']:.0f} kernels/step")
     for k, v in out["top_ms_per_step"]:
         print(f"  {v:9.3f} ms  {k}")
+    return out
+
+
+def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
+              scene8):
+    """Phases 9-13: the candidate-list cull (K4, K5) and the MXU cast (K6)
+    on terrain6.  Returns the numbers for the report and the kernels
+    line."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import tree
+    from raytracer_tpu_torch.builder import scale_camera
+    from raytracer_tpu_torch.diff import (grad_of, make_loss_fn,
+                                          trainable_params)
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render import cull, mxu
+    from raytracer_tpu_torch.render.engine import (_frame_rays_blocked,
+                                                   render_frame)
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+    from raytracer_tpu_torch.render.shading import shadow_rays
+
+    out = {"errs": {"cull_cast": 0.0, "cull_occlude": 0.0, "mxu_cast": 0.0},
+           "overflow": {}, "timing": {}, "frames": {}, "bounds": {}}
+    world = rtt.generate(WORLD6)
+    scene = rtt.to_device(world.scene, dev)
+    cfg = world.config.replace(engine="cuda")
+    geom = expand_geometry(scene)
+    n_inst = scene.inst_pos.shape[0]
+    data = ce.prepare_cast(scene, geom, cfg)
+    if data.nodes is not None:
+        raise AssertionError(f"terrain6 ({n_inst} instances) must take the "
+                             "cull under pallas_traversal='auto'")
+    tabs = {"box": data.tables,
+            "template": ce.build_tables(scene, geom, exact_uv=True)}
+    print(f"terrain6: {n_inst} instances, {scene.wtri_tri.shape[0]} world "
+          "triangles: the candidate-list cull")
+    cams = {s: rtt.to_device(scale_camera(world.camera, s[0],
+                                          world.config.width), dev)
+            for s in SIZES}
+    cfgs = {s: cfg.replace(width=s[0], height=s[1]) for s in SIZES}
+    main = SIZES[0]
+    main_key = f"{main[0]}x{main[1]}"
+
+    def lists(cfg_s, o, d):
+        tile = cull.tile_rows_of(cfg_s) * cull.LANES
+        lay = cull.CullLayout.of(o.shape[0], cfg_s.pallas_ray_chunk, tile)
+        o_p, d_p = lay.pad_rays(o, d, 1.0e30)
+        cand, info = cull.tile_candidates(o_p, d_p, tile,
+                                          data.tables.inst_f32,
+                                          cull.MAX_CAND)
+        return lay, o_p, d_p, cand, info, tile
+
+    def share(info):
+        return float(info[:, 1].float().mean())
+
+    # ---- phase 9: K4 and K5 against their plain versions --------------------
+    shadow_q = {}
+    for s in SIZES:
+        ro, rd, _, _ = _frame_rays_blocked(cams[s], cfgs[s])
+        lay, o_p, d_p, cand, info, tile = lists(cfgs[s], ro, rd)
+        key = f"{s[0]}x{s[1]}"
+        out["overflow"][f"k4_primary_{key}"] = share(info)
+        hit = cull.cull_cast(o_p, d_p, cand, info, tile, data.tables)
+        valid = lay.unpad(hit.valid)
+        t = torch.where(valid, lay.unpad(hit.t), 1.0)
+        o1, d1, dist, o2, d2 = shadow_rays(scene, ro + t[:, None] * rd,
+                                           valid)
+        shadow_q[s] = {"point": (o1, d1, dist),
+                       "directional": (o2, d2.contiguous(),
+                                       torch.full_like(dist, float("inf")))}
+        for q, (o, d, _) in shadow_q[s].items():
+            out["overflow"][f"k5_{q}_{key}"] = share(lists(cfgs[s], o, d)[4])
+        print(f"cull {key}: overflowing tiles {out['overflow']}")
+    ro, rd, _, _ = _frame_rays_blocked(cams[main], cfgs[main])
+    k_rays = {f"primary {main_key}": (ro, rd),
+              f"random {N_RANDOM}": rays_random}
+    for tname, tab in tabs.items():
+        for rname, (o, d) in k_rays.items():
+            lay, o_p, d_p, cand, info, tile = lists(cfgs[main], o, d)
+            hk = cull.cull_cast(o_p, d_p, cand, info, tile, tab)
+            hp = cull.cull_cast_reference(o_p, d_p, cand, info, tile, tab)
+            torch.cuda.synchronize()
+            e = _compare_hits(f"K4 {tname}/{rname}", hk, hp)
+            if e != 0.0:
+                raise AssertionError(f"K4 {tname}/{rname}: max abs err {e}")
+            out["errs"]["cull_cast"] = max(out["errs"]["cull_cast"], e)
+            print(f"K4 {tname:8s} {rname:16s}: {int(hk.valid.sum())} hits "
+                  f"over {info.shape[0]} tiles ({share(info):.3f} "
+                  "overflow), identical to plain (max abs err 0)")
+        for qname, (o, d, mt) in shadow_q[main].items():
+            lay, o_p, d_p, cand, info, tile = lists(cfgs[main], o, d)
+            mt_p = lay.pad(mt, 0.0)
+            bk = cull.cull_occlude(o_p, d_p, mt_p, cand, info, tile, tab)
+            bp = cull.cull_occlude_reference(o_p, d_p, mt_p, cand, info,
+                                             tile, tab)
+            torch.cuda.synchronize()
+            if not torch.equal(bk, bp):
+                raise AssertionError(f"K5 {tname}/{qname}: mask differs on "
+                                     f"{int((bk != bp).sum())} rays")
+            out["errs"]["cull_occlude"] = max(
+                out["errs"]["cull_occlude"],
+                float((bk.float() - bp.float()).abs().max()))
+            print(f"K5 {tname:8s} {qname:11s}: blocked {int(bk.sum())} of "
+                  f"{bk.numel()} padded rays, identical to plain")
+
+    # ---- phase 10: K6 against its plain version -----------------------------
+    cfg_m = cfg.replace(pallas_kernel="mxu")
+    mdata = mxu.prepare_mxu_cast(scene, geom, cfg_m)
+
+    def staging(o, d):
+        lay = cull.CullLayout.of(o.shape[0], cfg.pallas_ray_chunk,
+                                 mdata.tile)
+        o_p, d_p = lay.pad_rays(o, d, 0.0)
+        st = mxu.stage_mxu(o_p, d_p, mdata)
+        return (st[0], mdata.columns, mdata.n_tris) + st[1:]
+
+    m_rays = dict(k_rays)
+    m_rays[f"shadow {main_key}"] = shadow_q[main]["point"][:2]
+    m_args = {}
+    for rname, (o, d) in m_rays.items():
+        args = staging(o, d)
+        m_args[rname] = args
+        ok_ = mxu.mxu_cast(*args, mdata.tile)
+        op_ = mxu.mxu_cast_reference(*args, mdata.tile)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("t", "id", "u", "v"), ok_, op_):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K6 {rname}: {name} differs on "
+                                     f"{int((a != b).sum())} rays")
+            out["errs"]["mxu_cast"] = max(out["errs"]["mxu_cast"], float(
+                torch.where(a == b, 0.0, (a - b).abs()).max()))
+        out["overflow"][f"k6_{rname.split()[0]}_{main_key}"] = share(args[0])
+        print(f"K6 {rname:16s}: {int(torch.isfinite(ok_[0]).sum())} hits, "
+              f"{share(args[0]):.3f} of {args[0].shape[0]} tiles dense, "
+              "t/id/u/v identical to plain")
+
+    # ---- phase 11: the frames of both paths ---------------------------------
+    all_k = {"bvh_cast": ce.bvh_cast, "bvh_occlude2": ce.bvh_occlude2,
+             "bvh_occlude": ce.bvh_occlude, "cull_cast": cull.cull_cast,
+             "cull_occlude": cull.cull_occlude, "mxu_cast": mxu.mxu_cast}
+    paths = {"cull": (cfg, ("cull_cast", "cull_occlude")),
+             "mxu": (cfg_m, ("mxu_cast",))}
+    launches = {}
+    frames6 = {}
+    for pname, (pcfg, used) in paths.items():
+        for k in all_k.values():
+            k.launches = 0
+        imgs = {s: render_frame(scene, cams[s], pcfg.replace(
+            width=s[0], height=s[1])) for s in SIZES}
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in all_k.items()}
+        print(f"terrain6 {pname} frames launches: {counts}")
+        for name, n in counts.items():
+            if (n > 0) != (name in used):
+                raise AssertionError(f"{pname} frames launched {name} "
+                                     f"{n} times")
+        launches.update({name: counts[name] for name in used})
+        for s in SIZES:
+            img = imgs[s]
+            ref = render_frame(scene, cams[s], pcfg.replace(
+                width=s[0], height=s[1], engine="torch"))
+            if tuple(img.shape) != (s[1], s[0], 4) or not bool(
+                    torch.isfinite(img).all()):
+                raise AssertionError(f"terrain6 {pname} {s}: bad frame")
+            diff = float((img - ref).abs().max())
+            hit_share = float((img[..., :3].amax(-1) > 0.0).float().mean())
+            if diff > ATOL_FRAME or hit_share <= 0.05:
+                raise AssertionError(f"terrain6 {pname} {s}: cuda vs torch "
+                                     f"{diff}, hit share {hit_share}")
+            print(f"terrain6 {pname} {s[0]}x{s[1]}: cuda == torch engine "
+                  f"(max abs diff {diff:.3g}), hit share {hit_share:.4f}")
+            out["frames"][f"{pname}_{s[0]}x{s[1]}"] = {
+                "max_abs_diff": diff, "hit_share": hit_share}
+        frames6[pname] = imgs
+    d_mxu = float((frames6["mxu"][main] - frames6["cull"][main]).abs().max())
+    print(f"terrain6 {main_key}: MXU frame vs cull frame max abs diff "
+          f"{d_mxu:.3g}")
+    out["frames"]["mxu_vs_cull_max_abs_diff"] = d_mxu
+
+    # ---- phase 12: the cull frame against the LBVH walk's -------------------
+    walk6 = render_frame(scene, cams[main], cfgs[main].replace(
+        pallas_traversal="bvh"))
+    cull8 = render_frame(scene8, cam8_main, cfg8_main.replace(
+        pallas_traversal="cull"))
+    for wname, a, b in (("terrain6", frames6["cull"][main], walk6),
+                        ("terrain8", cull8, frame8_main)):
+        d = float((a - b).abs().max())
+        if d > ATOL_FRAME:
+            raise AssertionError(f"{wname}: cull vs LBVH frame {d}")
+        print(f"{wname} {main_key}: cull frame == LBVH frame (max abs diff "
+              f"{d:.3g})")
+        out["frames"][f"cull_vs_lbvh_{wname}"] = d
+
+    # ---- phase 13: the cull's training step ---------------------------------
+    big = SIZES[-1]
+    big_key = f"{big[0]}x{big[1]}"
+    target0 = torch.zeros(big[1], big[0], 4, device=dev)
+
+    def loss_and_grads(engine):
+        params = trainable_params(scene, cams[big])
+        loss = make_loss_fn(scene, cams[big], cfgs[big].replace(
+            engine=engine), target0)(params)
+        return loss.detach(), grad_of(loss, params)
+
+    for k in all_k.values():
+        k.launches = 0
+    loss_c, g_c = loss_and_grads("cuda")
+    torch.cuda.synchronize()
+    step_launches = {name: k.launches for name, k in all_k.items()}
+    print(f"terrain6 cull step {big_key} launches: {step_launches}")
+    if (step_launches["cull_cast"] < 1 or step_launches["cull_occlude"] < 2
+            or any(step_launches[n] for n in ("bvh_cast", "bvh_occlude",
+                                              "bvh_occlude2", "mxu_cast"))):
+        raise AssertionError("the cull step did not run through K4/K5 alone")
+    loss_t, g_t = loss_and_grads("torch")
+    err = {"max_abs": 0.0}
+    for (key, a), b in zip(tree.leaves_with_paths(g_c), tree.leaves(g_t)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"cull step grad {key} not finite")
+        torch.testing.assert_close(
+            a, b, rtol=RTOL_GRAD, atol=ATOL_GRAD,
+            msg=lambda m, key=key: f"cull grad {key} cuda vs torch: {m}")
+        err["max_abs"] = max(err["max_abs"], float((a - b).abs().max()))
+    if float(g_c["cam_pos"].abs().max()) == 0.0:
+        raise AssertionError("cull step: camera grads are zero")
+    print(f"terrain6 cull step {big_key}: loss {float(loss_c):.6f} (torch "
+          f"{float(loss_t):.6f}), grads cuda == torch engine (max abs "
+          f"{err['max_abs']:.3g})")
+    out["step"] = {"launches": step_launches, "grad_err": err,
+                   "loss": float(loss_c)}
+
+    # ---- timings ------------------------------------------------------------
+    timing = out["timing"]
+    for pname, (pcfg, _) in paths.items():
+        for s in SIZES:
+            key = f"{pname}_{s[0]}x{s[1]}"
+            c = pcfg.replace(width=s[0], height=s[1])
+            timing[f"frame_ms_cuda_{key}"] = _ms(
+                lambda: render_frame(scene, cams[s], c))
+            timing[f"frame_ms_torch_{key}"] = _ms(
+                lambda: render_frame(scene, cams[s], c.replace(
+                    engine="torch")), reps=1, warmup=False)
+            print(f"time terrain6 {key} [{smi}]: frame cuda "
+                  f"{timing[f'frame_ms_cuda_{key}']:.3f} ms / torch "
+                  f"{timing[f'frame_ms_torch_{key}']:.3f} ms")
+    timing[f"step_ms_cuda_cull_{big_key}"] = _ms(
+        lambda: loss_and_grads("cuda"), reps=5)
+    print(f"time terrain6 cull fwd+bwd {big_key} [{smi}]: "
+          f"{timing[f'step_ms_cuda_cull_{big_key}']:.3f} ms (median of 5)")
+
+    lay, o_p, d_p, cand, info, tile = lists(cfgs[main], ro, rd)
+    k4 = (o_p, d_p, cand, info, tile, data.tables)
+    o, d, mt = shadow_q[main]["point"]
+    lay5, o5, d5, cand5, info5, tile5 = lists(cfgs[main], o, d)
+    k5 = (o5, d5, lay5.pad(mt, 0.0), cand5, info5, tile5, data.tables)
+    k6 = m_args[f"primary {main_key}"] + (mdata.tile,)
+    timing.update({
+        "k4_ms": _ms(lambda: cull.cull_cast(*k4)),
+        "k4_plain_ms": _ms(lambda: cull.cull_cast_reference(*k4),
+                           reps=PLAIN_REPS),
+        "k5_ms": _ms(lambda: cull.cull_occlude(*k5)),
+        "k5_plain_ms": _ms(lambda: cull.cull_occlude_reference(*k5),
+                           reps=PLAIN_REPS),
+        "k6_ms": _ms(lambda: mxu.mxu_cast(*k6)),
+        "k6_plain_ms": _ms(lambda: mxu.mxu_cast_reference(*k6),
+                           reps=PLAIN_REPS),
+    })
+    print(f"time terrain6 {main_key} [{smi}]: K4 {timing['k4_ms']:.4f} ms / "
+          f"plain {timing['k4_plain_ms']:.3f} ms; K5 {timing['k5_ms']:.4f} "
+          f"ms / plain {timing['k5_plain_ms']:.3f} ms; K6 "
+          f"{timing['k6_ms']:.4f} ms / plain {timing['k6_plain_ms']:.3f} ms "
+          f"(median of {REPS} / {PLAIN_REPS})")
+
+    # ---- bounds at the main path's shapes -----------------------------------
+    tab_bytes = _nbytes(data.tables.inst_f32, data.tables.inst_i32,
+                        data.tables.tmpl)
+    h4 = cull.cull_cast(*k4)
+    out["bounds"]["cull_cast"] = _bound(
+        _nbytes(o_p, d_p, cand, info, h4.t, h4.wtri, h4.uv, h4.normal,
+                h4.mat) + tab_bytes,
+        _work_ops(_work(cull.cull_cast_reference, *k4), closest_hit=True))
+    b5 = cull.cull_occlude(*k5)
+    out["bounds"]["cull_occlude"] = _bound(
+        _nbytes(*k5[:5], b5) + tab_bytes,
+        _work_ops(_work(cull.cull_occlude_reference, *k5),
+                  closest_hit=False))
+    # K6: a staged tile's live columns hold a triangle (id >= 0); a dense
+    # tile's are the n_tris triangles of the table, not its zero padding
+    info6, ids6 = k6[0], k6[4]
+    over6 = info6[:, 1] > 0
+    n_dense = int(over6.sum())
+    live_staged = int((ids6[~over6] >= 0.0).sum())
+    live_cols = live_staged + n_dense * mdata.n_tris
+    out["k6_columns"] = {"live_staged": live_staged,
+                         "staged": (info6.shape[0] - n_dense) * mdata.k_cols,
+                         "dense_tiles": n_dense, "n_tris": mdata.n_tris}
+    out["bounds"]["mxu_cast"] = _bound(
+        _nbytes(*[x for x in k6 if isinstance(x, torch.Tensor)])
+        + 4 * 4 * info6.shape[0] * mdata.tile,
+        live_cols * mdata.tile * OPS["mxu_col"])
+    print(f"K6 {main_key} columns: {out['k6_columns']}")
+    for name, b in out["bounds"].items():
+        print(f"bound {name}: {b['bound_ms']:.5f} ms ({b['bound_by']}: "
+              f"{b['bytes']} bytes, {b['ops']} FP32 ops)")
+
+    for pname, (pcfg, _) in paths.items():
+        for s in SIZES:
+            c = pcfg.replace(width=s[0], height=s[1])
+            out[f"profile_{pname}_{s[0]}x{s[1]}"] = _profile(
+                lambda: render_frame(scene, cams[s], c), smi, steps=5,
+                label=f"terrain6 {pname} frame {s[0]}x{s[1]}")
+    out[f"profile_cull_step_{big_key}"] = _profile(
+        lambda: loss_and_grads("cuda"), smi,
+        label=f"terrain6 cull fwd+bwd {big_key}")
+    out["launches"] = launches
     return out
 
 
@@ -157,6 +548,7 @@ def main(argv=None) -> int:
                     help="also write every number to this JSON file")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     # ---- phase 1: the card -------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -352,7 +744,7 @@ def main(argv=None) -> int:
                   f"{int(hit.valid.sum())} hits, mask identical to plain and "
                   "to K2")
 
-    # ---- phase 7: per-light frames (the K3 path) -----------------------------
+    # ---- phase 7: per-light frames (the K3 path) ----------------------------
     world3 = rtt.generate(WORLD_LIGHTS3)
     scene3 = rtt.to_device(world3.scene, dev)
     cam3 = rtt.to_device(scale_camera(world3.camera, main[0],
@@ -388,7 +780,7 @@ def main(argv=None) -> int:
     report["frames"]["per_light"] = {"terrain8_equal_fused": True,
                                      "lights3_max_abs_diff": diff3}
 
-    # ---- phase 8: the training step ------------------------------------------
+    # ---- phase 8: the training step -----------------------------------------
     big = SIZES[-1]
     big_key = f"{big[0]}x{big[1]}"
     target0 = torch.zeros(big[1], big[0], 4, device=dev)
@@ -456,7 +848,7 @@ def main(argv=None) -> int:
                        "step_launches": step_launches,
                        f"losses_{main_key}": losses}
 
-    # ---- timings of the new phases -------------------------------------------
+    # ---- timings of the new phases ------------------------------------------
     def fwd_bwd(engine):
         params_s = trainable_params(scene, cams[big])
         return lambda: loss_and_grads(engine, params_s)
@@ -482,30 +874,65 @@ def main(argv=None) -> int:
           f"/ torch engine {step_ms_torch:.3f} ms (once)")
     report["profile"] = _profile(fwd_bwd("cuda"), smi)
 
+    # ---- bounds of K1-K3 at the main path's shapes (terrain8, 640x480) ------
+    tab8 = _nbytes(data.tables.inst_f32, data.tables.inst_i32,
+                   data.tables.tmpl, data.nodes, data.ordering)
+    work = {"bvh_cast": _work(ce.bvh_cast_reference, ro, rd, data),
+            "bvh_occlude2": _work(ce.bvh_occlude2_reference, *occ_inputs,
+                                  data),
+            "bvh_occlude": _work(ce.bvh_occlude_reference, o1, d1, dist,
+                                 data)}
+    h1 = ce.bvh_cast(ro, rd, data)
+    b2 = ce.bvh_occlude2(*occ_inputs, data)
+    b3 = ce.bvh_occlude(o1, d1, dist, data)
+    bounds = {
+        "bvh_cast": _bound(_nbytes(ro, rd, h1.t, h1.wtri, h1.uv, h1.normal,
+                                   h1.mat) + tab8,
+                           _work_ops(work["bvh_cast"], closest_hit=True)),
+        "bvh_occlude2": _bound(_nbytes(*occ_inputs, *b2) + tab8, _work_ops(
+            work["bvh_occlude2"], closest_hit=False)),
+        "bvh_occlude": _bound(_nbytes(o1, d1, dist, b3) + tab8, _work_ops(
+            work["bvh_occlude"], closest_hit=False)),
+    }
+    for name, b in bounds.items():
+        print(f"bound {name}: {b['bound_ms']:.5f} ms ({b['bound_by']}: "
+              f"{b['bytes']} bytes, {b['ops']} FP32 ops)")
+
+    # ---- phases 9-13: terrain6 on the cull and the MXU cast -----------------
+    t6 = _terrain6(dev, smi, (o_rand, d_rand), frames[main], cfgs[main],
+                   cams[main], scene)
+    bounds.update(t6["bounds"])
+    errs.update(t6["errs"])
+    launches.update(t6["launches"])
+    timing[main_key].update({k: t6["timing"][k] for k in (
+        "k4_ms", "k4_plain_ms", "k5_ms", "k5_plain_ms", "k6_ms",
+        "k6_plain_ms")})
+    report["terrain6"] = t6
+    report["bounds"] = bounds
     report["timing"] = timing
     report["launches"] = launches
 
+    tpu = "raytracer_tpu/render/"
+    rows = [  # name, source, replaces, timing key
+        ("bvh_cast", SOURCE, tpu + "pallas_engine.py:916", "k1"),
+        ("bvh_occlude2", SOURCE, tpu + "pallas_engine.py:1033", "k2"),
+        ("bvh_occlude", SOURCE, tpu + "pallas_engine.py:983", "k3"),
+        ("cull_cast", SOURCE_CULL, tpu + "pallas_engine.py:869", "k4"),
+        ("cull_occlude", SOURCE_CULL, tpu + "pallas_engine.py:1102", "k5"),
+        ("mxu_cast", SOURCE_MXU, tpu + "pallas_mxu.py:119", "k6"),
+    ]
+    # no single PyTorch call computes a closest hit or an any-hit query
     kernels_line = {"kernels": [
-        {"name": "bvh_cast", "route": "cuda", "source": SOURCE,
-         "replaces": "raytracer_tpu/render/pallas_engine.py:916",
-         "launches": launches["bvh_cast"],
-         "max_abs_err": errs["bvh_cast"],
-         "ms": timing[main_key]["k1_ms"],
-         "plain_ms": timing[main_key]["k1_plain_ms"]},
-        {"name": "bvh_occlude2", "route": "cuda", "source": SOURCE,
-         "replaces": "raytracer_tpu/render/pallas_engine.py:1033",
-         "launches": launches["bvh_occlude2"],
-         "max_abs_err": errs["bvh_occlude2"],
-         "ms": timing[main_key]["k2_ms"],
-         "plain_ms": timing[main_key]["k2_plain_ms"]},
-        {"name": "bvh_occlude", "route": "cuda", "source": SOURCE,
-         "replaces": "raytracer_tpu/render/pallas_engine.py:983",
-         "launches": launches["bvh_occlude"],
-         "max_abs_err": errs["bvh_occlude"],
-         "ms": timing[main_key]["k3_ms"],
-         "plain_ms": timing[main_key]["k3_plain_ms"]},
-    ]}
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": errs[name], "ms": timing[main_key][f"{key}_ms"],
+         "plain_ms": timing[main_key][f"{key}_plain_ms"],
+         "bound_ms": bounds[name]["bound_ms"],
+         "bound_by": bounds[name]["bound_by"], "library_ms": None}
+        for name, source, replaces, key in rows]}
     report["kernels"] = kernels_line["kernels"]
+    report["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: {report['seconds']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

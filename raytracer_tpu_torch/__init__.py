@@ -1,10 +1,10 @@
 """raytracer_tpu_torch — the PyTorch/CUDA port of ``raytracer_tpu``.
 
-The forward cube-world render path on an NVIDIA GPU: the same scene model,
-world loader and wavefront shading as the JAX package, with its two LBVH
-Pallas kernels (closest hit and the fused two-light shadow query) rewritten
-as hand-written CUDA kernels (``csrc/``).  Imports torch and numpy only,
-never JAX.
+Cube-world rendering and its training step on an NVIDIA GPU: the same
+scene model, world loader and wavefront shading as the JAX package, with
+each of its Pallas kernels (the LBVH walk's closest hit and shadow queries,
+the candidate-list cull's, and the MXU cast) rewritten as a hand-written
+CUDA kernel (``csrc/``).  Imports torch and numpy only, never JAX.
 """
 
 from .scene import (Camera, Lights, Materials, RenderConfig, Scene,

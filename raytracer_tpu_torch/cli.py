@@ -8,6 +8,8 @@ rendering, benchmarking and training).
 Flags: ``-c/--config`` world JSON, ``-o/--out`` PNG path, ``-b/--bench``
 time frames (prints ``Time: <ms>`` and one JSON line), ``--repeats``,
 ``--width``/``--height`` canvas overrides (the field of view is kept),
+``-d/--dim`` the candidate-list cull's tile (``tile_rows = max(8,
+ceil8(d*d/128))``; the LBVH walk and the MXU cast do not read it),
 ``-s/--reference-impl`` the plain-PyTorch ``"torch"`` engine instead of the
 CUDA kernels, ``--device`` (default ``cuda``; there is no fallback to the
 CPU when CUDA is missing).  Training: ``--train N`` / ``--train-until
@@ -34,6 +36,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--bench", action="store_true", help="benchmark mode")
     p.add_argument("-s", "--reference-impl", action="store_true",
                    help="use the plain-PyTorch engine (engine='torch')")
+    p.add_argument(
+        "-d", "--dim", type=int, default=None,
+        help="kernel tile edge (reference -d): the cull's tile rows = d*d/128 "
+             "rounded up to a multiple of 8, floor 8 (d<=32 -> 8 rows, d=64 "
+             "-> 32 rows); unset = auto by frame size (48-64 rows)")
     p.add_argument("-o", "--out", default=None, help="output PNG path")
     p.add_argument("--width", type=int, default=None,
                    help="override canvas width")
@@ -59,6 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in _UNPORTED:
         p.add_argument(flag, default=None, help="not ported (raises)")
     return p
+
+
+def tile_rows_for_dim(dim: int) -> int:
+    """``-d``: ``max(8, ceil8(dim * dim / 128))`` tile rows, as
+    ``raytracer_tpu/cli.py`` maps it."""
+    return max(8, (dim * dim // 128 + 7) // 8 * 8)
 
 
 # supervised restarts and device traces: ROADMAP.md Queue 1 item 9
@@ -159,6 +172,8 @@ def main(argv=None) -> int:
         cfg = cfg.replace(width=args.width)
     if args.height:
         cfg = cfg.replace(height=args.height)
+    if args.dim is not None:
+        cfg = cfg.replace(tile_rows=tile_rows_for_dim(args.dim))
     cfg = cfg.replace(engine="torch" if args.reference_impl else "cuda")
     scene = to_device(world.scene, dev)
     camera = to_device(camera, dev)

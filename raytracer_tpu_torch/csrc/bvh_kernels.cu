@@ -46,15 +46,7 @@ bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const Ray ray = load_ray(ro, rd, r);
-  Best best;
-  best.t = __int_as_float(0x7f800000);  // +inf: miss
-  best.tri = 0;
-  best.u = 0.0f;
-  best.v = 0.0f;
-  best.n[0] = 0.0f;
-  best.n[1] = 0.0f;
-  best.n[2] = 1.0f;
-  best.mat = 0;
+  Best best = miss();
 
   const int total = 2 * tb.n_leaves - 1;
   int v = 1;  // virtual heap index; flat row = total - v
@@ -73,18 +65,7 @@ bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     }
     v = (vote && !is_leaf) ? 2 * v : skip_next(v);
   }
-
-  // _write_best: re-normalize the interpolated normal once
-  const float nlen = sqrtf(best.n[0] * best.n[0] + best.n[1] * best.n[1] +
-                           best.n[2] * best.n[2]);
-  const float ninv = 1.0f / nan_max(nlen, THRESHOLD);
-  t_out[r] = best.t;
-  tri_out[r] = best.tri;
-  uv_out[2 * r] = best.u;
-  uv_out[2 * r + 1] = best.v;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) n_out[3 * r + k] = best.n[k] * ninv;
-  mat_out[r] = best.mat;
+  write_best(best, r, t_out, tri_out, uv_out, n_out, mat_out);
 }
 
 __global__ void __launch_bounds__(kThreads)

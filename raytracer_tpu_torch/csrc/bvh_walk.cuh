@@ -1,4 +1,5 @@
-// Device helpers shared by the LBVH kernels in bvh_kernels.cu.
+// Device helpers shared by the LBVH kernels (bvh_kernels.cu) and the
+// candidate-list kernels (cull_kernels.cu).
 //
 // Each is the per-ray counterpart of a helper of the Pallas kernels in
 // raytracer_tpu/render/pallas_engine.py (_ray_recips, _slab_terms,
@@ -24,6 +25,7 @@ constexpr int IF_WIDTH = 40;
 constexpr int II_TMPL_START = 0;
 constexpr int II_TRI_COUNT = 1;
 constexpr int II_WTRI_START = 2;
+constexpr int II_VALID = 3;
 constexpr int II_IS_BOX = 4;
 constexpr int II_MAT = 5;
 constexpr int II_FACE_WTRI = 8;
@@ -47,7 +49,7 @@ constexpr float F32_BIG = 3.0e38f;
 constexpr float F32_NEG_BIG = -3.0e38f;
 
 struct Tables {
-  const float* __restrict__ nodes;    // [2n-1, NODE_WIDTH]
+  const float* __restrict__ nodes;    // [2n-1, NODE_WIDTH] (walk only)
   const int* __restrict__ ordering;   // [n], -1 for padding leaves
   int n_leaves;
   const float* __restrict__ inst_f;   // [N, IF_WIDTH]
@@ -138,6 +140,39 @@ struct Best {
   float n[3];
   int mat;
 };
+
+// _init_best: a miss is t = +inf, tri 0, uv 0, normal (0, 0, 1), mat 0.
+__device__ __forceinline__ Best miss() {
+  Best b;
+  b.t = __int_as_float(0x7f800000);
+  b.tri = 0;
+  b.u = 0.0f;
+  b.v = 0.0f;
+  b.n[0] = 0.0f;
+  b.n[1] = 0.0f;
+  b.n[2] = 1.0f;
+  b.mat = 0;
+  return b;
+}
+
+// _write_best: the interpolated normal is re-normalized once, at the end.
+__device__ __forceinline__ void write_best(const Best& best, int r,
+                                           float* __restrict__ t_out,
+                                           int* __restrict__ tri_out,
+                                           float* __restrict__ uv_out,
+                                           float* __restrict__ n_out,
+                                           int* __restrict__ mat_out) {
+  const float nlen = sqrtf(best.n[0] * best.n[0] + best.n[1] * best.n[1] +
+                           best.n[2] * best.n[2]);
+  const float ninv = 1.0f / nan_max(nlen, THRESHOLD);
+  t_out[r] = best.t;
+  tri_out[r] = best.tri;
+  uv_out[2 * r] = best.u;
+  uv_out[2 * r + 1] = best.v;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) n_out[3 * r + k] = best.n[k] * ninv;
+  mat_out[r] = best.mat;
+}
 
 // _box_face_hit: the slab entry (or, from inside, exit) face of an
 // identity-rotation box is its closest triangle hit.  Ties pick x, y, z;

@@ -1,8 +1,11 @@
 """Hit records and the shading attributes of a hit.
 
 Counterpart of ``raytracer_tpu/render/cast.py`` (``Hit``,
-``hit_shading_attrs``).  The casts themselves live in ``cuda_engine.py``;
-ray chunking is not ported (one launch covers a whole frame).
+``hit_shading_attrs``).  The casts themselves live in ``cuda_engine.py``
+(the LBVH walk), ``cull.py`` and ``mxu.py``.  The walk takes a whole frame
+in one launch; the cull and the MXU cast chunk the rays as
+``_chunked_over_rays`` does (``cull.CullLayout``), since their tiles, and so
+their results' order of visits, depend on which rays share a tile.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from .geometry import WorldGeometry
 @dataclass
 class Hit:
     """SoA hit record (the reference's ``Isect``).  ``normal``/``mat`` are
-    filled by casts that already know them (both kernels here do)."""
+    filled by casts that already know them (the scalar kernels do, the MXU
+    cast does not)."""
 
     valid: torch.Tensor  # [...] bool
     t: torch.Tensor  # [...] f32 (inf when invalid)

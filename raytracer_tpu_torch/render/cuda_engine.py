@@ -1,9 +1,10 @@
-"""LBVH cast and fused two-light shadow query: tables, plain versions, kernels.
+"""LBVH cast and shadow queries: tables, plain versions, kernels.
 
-Counterpart of ``raytracer_tpu/render/pallas_engine.py`` for the forward
-cube-world path.  Two of its Pallas kernels run on that path, and each has
-here a hand-written CUDA kernel (``csrc/bvh_kernels.cu``), a plain batched
-PyTorch version beside it, and a wrapper that dispatches by device:
+Counterpart of ``raytracer_tpu/render/pallas_engine.py``.  Its LBVH-walk
+kernels each have here a hand-written CUDA kernel (``csrc/bvh_kernels.cu``),
+a plain batched PyTorch version beside it, and a wrapper that dispatches by
+device; the candidate-list cull (K4/K5, the JAX package's traversal at <= 256
+instances) lives in ``cull.py`` and shares this module's tables and helpers:
 
 * K1 ``_bvh_cast_kernel`` -> :func:`bvh_cast` / :func:`bvh_cast_reference`:
   closest hit through the stackless implicit-heap LBVH walk; leaves run the
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -59,7 +61,7 @@ _IF_WIDTH = 40
 _II_TMPL_START = 0  # first row in the template table
 _II_TRI_COUNT = 1   # triangle count
 _II_WTRI_START = 2  # world-triangle id of the instance's first triangle
-_II_VALID = 3
+_II_VALID = 3       # 1 for every real instance
 _II_IS_BOX = 4      # 1 when the mesh is an identity-rotation box
 _II_MAT = 5         # material id (box meshes are single-material)
 _II_FACE_WTRI = 8   # 8:14 first world-tri id per face
@@ -90,15 +92,17 @@ class SceneTables:
 
 @dataclass
 class CastData:
-    """What the cast needs at run time (``prepare_pallas_cast``'s dict)."""
+    """What the cast needs at run time (``prepare_pallas_cast``'s dict).
+    The LBVH fields are ``None`` on the candidate-list cull, which reads
+    the tables only."""
 
     tables: SceneTables
-    nodes: torch.Tensor  # [2n-1, 8] f32: min, max, valid
-    ordering: torch.Tensor  # [n] i32, -1 for padding leaves
+    nodes: Optional[torch.Tensor] = None  # [2n-1, 8] f32: min, max, valid
+    ordering: Optional[torch.Tensor] = None  # [n] i32, -1 for padding
 
     @property
     def n_leaves(self) -> int:
-        return self.ordering.shape[0]
+        return 0 if self.ordering is None else self.ordering.shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +268,8 @@ def build_tables(scene: Scene, geom: WorldGeometry, *,
 
 
 def _use_walk(cfg: RenderConfig, n_inst: int) -> bool:
+    """``pallas_engine._use_walk``: the LBVH walk for ``"bvh"``, or for
+    ``"auto"`` above 256 instances; the candidate-list cull otherwise."""
     return cfg.pallas_traversal == "bvh" or (
         cfg.pallas_traversal == "auto" and n_inst > 256)
 
@@ -271,16 +277,15 @@ def _use_walk(cfg: RenderConfig, n_inst: int) -> bool:
 @torch.no_grad()
 def prepare_cast(scene: Scene, geom: WorldGeometry,
                  cfg: RenderConfig) -> CastData:
-    """Tables + LBVH nodes for the walk (``prepare_pallas_cast``).  Runs
-    under ``no_grad``, the counterpart of the JAX package's
-    ``stop_gradient(scene)``: the tables are written in place and never
-    join a graph, since the casts' gradients come from their VJP rules.
-    The candidate-list cull the JAX package takes at <= 256 instances is
-    not ported and raises."""
+    """The scalar kernels' run-time data (``prepare_pallas_cast``): the
+    tables, plus the LBVH nodes when ``_use_walk`` picks the walk (the cull
+    reads the tables only).  Runs under ``no_grad``, the counterpart of the
+    JAX package's ``stop_gradient(scene)``: the tables are written in place
+    and never join a graph, since the casts' gradients come from their VJP
+    rules.  The MXU kernel has its own data (``mxu.prepare_mxu_cast``)."""
     if cfg.pallas_kernel != "scalar":
-        raise NotImplementedError(
-            f"pallas_kernel={cfg.pallas_kernel!r} is not ported (ROADMAP.md "
-            "Queue 1 item 10: the MXU kernel K6)")
+        raise ValueError(f"prepare_cast builds the scalar kernels' data, not "
+                         f"pallas_kernel={cfg.pallas_kernel!r}")
     if cfg.edge_aware_grads:
         raise NotImplementedError(
             "edge_aware_grads is not ported (ROADMAP.md Queue 1 item 7: "
@@ -289,13 +294,9 @@ def prepare_cast(scene: Scene, geom: WorldGeometry,
         raise NotImplementedError(
             "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
             "ops surface and atlas sampling)")
-    if not _use_walk(cfg, scene.inst_pos.shape[0]):
-        raise NotImplementedError(
-            f"traversal {cfg.pallas_traversal!r} at "
-            f"{scene.inst_pos.shape[0]} instances selects the candidate-list "
-            "cull, which is not ported (ROADMAP.md Queue 1 item 3: the cull "
-            "with K4/K5); use pallas_traversal='bvh'")
     tables = build_tables(scene, geom)
+    if not _use_walk(cfg, scene.inst_pos.shape[0]):
+        return CastData(tables=tables)
     lbvh = build_lbvh(geom.aabb_min, geom.aabb_max)
     total = 2 * lbvh.n_leaves - 1
     nodes = torch.zeros(total, _NODE_WIDTH, dtype=torch.float32,
@@ -318,16 +319,18 @@ def _ray_recips(d):
 
 
 def _slab_terms(box, o, inv, par):
-    """Per-axis slab times against ``box`` ([6]: min xyz, max xyz); parallel
-    axes are unconstrained but require the origin inside that slab."""
+    """Per-axis slab times against ``box`` (last axis: min xyz, max xyz;
+    one box ``[6+]`` or one per ray ``[R, 6+]``); parallel axes are
+    unconstrained but require the origin inside that slab."""
     tns, tfs = [], []
     inside = None
     for k in range(3):
-        t1 = (box[k] - o[k]) * inv[k]
-        t2 = (box[k + 3] - o[k]) * inv[k]
+        lo, hi = box[..., k], box[..., k + 3]
+        t1 = (lo - o[k]) * inv[k]
+        t2 = (hi - o[k]) * inv[k]
         tns.append(torch.where(par[k], F32_NEG_BIG, torch.minimum(t1, t2)))
         tfs.append(torch.where(par[k], F32_BIG, torch.maximum(t1, t2)))
-        ins = ~par[k] | ((o[k] >= box[k]) & (o[k] <= box[k + 3]))
+        ins = ~par[k] | ((o[k] >= lo) & (o[k] <= hi))
         inside = ins if inside is None else inside & ins
     return tns, tfs, inside
 
@@ -341,8 +344,9 @@ def _min3(x):
 
 
 def _quat_rotate_tile(q, v):
-    """Rotate per-ray vectors ``v`` (3 tensors) by one quaternion ``q``
-    (4 scalars), in ``pallas_engine._quat_rotate_tile``'s order."""
+    """Rotate per-ray vectors ``v`` (3 tensors) by a quaternion ``q`` (4
+    scalars, or 4 per-ray tensors), in ``pallas_engine._quat_rotate_tile``'s
+    order."""
     qx, qy, qz, qw = q
     vx, vy, vz = v
     n2 = qx * qx + qy * qy + qz * qz + qw * qw
@@ -358,7 +362,8 @@ def _quat_rotate_tile(q, v):
 
 def _box_face_hit(tns, tfs, inside, d, inst_f, inst_i):
     """Closest hit of an axis-aligned box from its slab times: the entry
-    face, or the exit face from inside.  Returns ``(ok, t, wtri, normal
+    face, or the exit face from inside.  ``inst_f``/``inst_i`` are one
+    instance's rows or one row per ray.  Returns ``(ok, t, wtri, normal
     [R,3])``; ties pick x, then y, then z."""
     t_entry = _max3(tns)
     t_exit = _min3(tfs)
@@ -375,20 +380,24 @@ def _box_face_hit(tns, tfs, inside, d, inst_f, inst_i):
     side_hi = (dsel >= 0.0) ^ is_entry
     axis = torch.where(ax_x, 0, torch.where(ax_y, 1, 2))
     face = axis * 2 + side_hi.long()
-    wtri = inst_i[_II_FACE_WTRI:_II_FACE_WTRI + 6][face]
-    normal = inst_f[_IF_FNRM:_IF_FNRM + 18].reshape(6, 3)[face]
-    return ok, t_hit, wtri, normal
+    face_w = inst_i[..., _II_FACE_WTRI:_II_FACE_WTRI + 6]
+    fnrm = inst_f[..., _IF_FNRM:_IF_FNRM + 18]
+    if inst_i.dim() == 1:  # one instance for every ray
+        return ok, t_hit, face_w[face], fnrm.reshape(6, 3)[face]
+    rows = torch.arange(face.shape[0], device=face.device)
+    return (ok, t_hit, face_w[rows, face],
+            fnrm.reshape(-1, 6, 3)[rows, face])
 
 
 def _template_tri(row, lo, ld):
-    """Plane + barycentric-area test of one template triangle in the
-    instance frame.  Returns ``(ok_geom, tt, b0, b1, b2)``; the caller adds
-    its own ``tt`` bound."""
-    a = row[_TF_A:_TF_A + 3]
-    b = row[_TF_B:_TF_B + 3]
-    c = row[_TF_C:_TF_C + 3]
-    n = row[_TF_PNU:_TF_PNU + 3]
-    area = row[_TF_AREA]
+    """Plane + barycentric-area test of one template triangle (a row
+    ``[32]``, or one per ray ``[R, 32]``) in the instance frame.  Returns
+    ``(ok_geom, tt, b0, b1, b2)``; the caller adds its own ``tt`` bound."""
+    a = [row[..., _TF_A + k] for k in range(3)]
+    b = [row[..., _TF_B + k] for k in range(3)]
+    c = [row[..., _TF_C + k] for k in range(3)]
+    n = [row[..., _TF_PNU + k] for k in range(3)]
+    area = row[..., _TF_AREA]
     denom = ld[0] * n[0] + ld[1] * n[1] + ld[2] * n[2]
     plane_ok = torch.abs(denom) >= rm.THRESHOLD
     tt = ((a[0] - lo[0]) * n[0] + (a[1] - lo[1]) * n[1]
@@ -414,27 +423,85 @@ def _template_tri(row, lo, ld):
 
 
 def _to_local(inst_f, o, d):
-    """Ray into the instance frame: o' = q (o - p), d' = q d."""
-    p = inst_f[_IF_POS:_IF_POS + 3]
-    q = inst_f[_IF_QUAT:_IF_QUAT + 4]
+    """Ray into the instance frame (one instance row, or one per ray):
+    o' = q (o - p), d' = q d."""
+    p = [inst_f[..., _IF_POS + k] for k in range(3)]
+    q = [inst_f[..., _IF_QUAT + k] for k in range(4)]
     lo = _quat_rotate_tile(q, [o[k] - p[k] for k in range(3)])
     ld = _quat_rotate_tile(q, d)
     return q, lo, ld
 
 
 def _leaves(data: CastData):
-    """Walk-order leaves ``(flat, instance)`` with a valid node, on the
-    host (one device read per call)."""
+    """Every leaf ``(flat, instance)`` in walk order, on the host (one
+    device read per call); the instance is -1 where the leaf is padding or
+    its node is not valid."""
     n = data.n_leaves
     order = data.ordering.cpu().tolist()
     ok = (data.nodes[:n, 6] > 0.0).cpu().tolist()
-    return [(f, order[f]) for f in range(n - 1, -1, -1)
-            if ok[f] and order[f] >= 0]
+    return [(f, order[f] if ok[f] else -1) for f in range(n - 1, -1, -1)]
+
+
+# Per-ray work counts the plain versions add into when handed a ``work``
+# tensor (int64 ``[R, 4]``), one column each: slab tests (tree nodes or
+# instance boxes), box-face evaluations, template instances entered (the ray
+# taken into the instance frame), template triangle tests.  They are what
+# the kernels do for these rays; chip_smoke.py reads them for the bounds.
+WORK_COLUMNS = ("slab", "box", "inst", "tri")
+
+
+def _slab_vote(row, o, inv, par):
+    """``(tmin, slab_ok)`` of a node or instance box: the slab interval is
+    not empty, ends at or after THRESHOLD, and a parallel axis holds the
+    origin."""
+    tns, tfs, inside = _slab_terms(row, o, inv, par)
+    tmin = _max3(tns)
+    tmax = _min3(tfs)
+    return tmin, (tmin <= tmax) & (tmax >= rm.THRESHOLD) & inside
+
+
+class _WalkVisits:
+    """Slab tests of the kernels' stackless walk, counted from the plain
+    versions' leaf loop.  A kernel visits a node iff every ancestor voted
+    and the walk has not ended; a node's vote reads the state (best t,
+    blocked) the leaves before it in preorder left, which is the state the
+    leaf loop holds before the node's leftmost leaf.  The leaves of the
+    implicit heap all sit at one depth (``n_leaves`` is a power of two), so
+    preorder visits them by falling flat index."""
+
+    def __init__(self, data: CastData, work: torch.Tensor, per_node: int):
+        n = data.n_leaves
+        if n & (n - 1):
+            raise ValueError(f"{n} leaves: the heap needs a power of two")
+        self.n, self.total, self.nodes = n, 2 * n - 1, data.nodes
+        self.work, self.per_node = work, per_node
+        self.go = {}  # internal node -> rays that visited it and voted
+
+    def enter_leaf(self, flat: int, vote, ended):
+        """Visit the nodes whose leftmost leaf is ``flat``, top-down, the
+        leaf last; ``vote(row)`` is a node's vote under the current state
+        and ``ended`` the rays whose walk is over.  Returns the rays that
+        visit the leaf."""
+        v = self.total - flat
+        depth = (v & -v).bit_length() - 1  # left-child steps above the leaf
+        for s in range(depth, -1, -1):
+            u = v >> s
+            if u == 1:
+                seen = ~ended
+            else:  # a right child is its parent's last use
+                up = self.go.pop(u >> 1) if u & 1 else self.go[u >> 1]
+                seen = up & ~ended
+            self.work[:, 0] += seen * self.per_node
+            if u < self.n:
+                self.go[u] = seen & vote(self.nodes[self.total - u])
+        return seen
 
 
 def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
-                       data: CastData) -> Hit:
-    """Plain version of K1: closest hit for rays ``[R, 3]``."""
+                       data: CastData, *,
+                       work: Optional[torch.Tensor] = None) -> Hit:
+    """Plain version of K1: closest hit for rays ``[R, 3]``.  ``work``:
+    see ``WORK_COLUMNS``."""
     R = ro.shape[0]
     dev = ro.device
     f32 = torch.float32
@@ -456,12 +523,24 @@ def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
           torch.ones(R, dtype=f32, device=dev)]
     bmat = torch.zeros(R, dtype=torch.int32, device=dev)
 
+    walk = None if work is None else _WalkVisits(data, work, 1)
+    never = torch.zeros(R, dtype=torch.bool, device=dev)
+
+    def vote(row):  # a node's vote under the current best
+        tmin, ok = _slab_vote(row, o, inv, par)
+        return ok & (tmin < bt) & (row[6] > 0.0)
+
     for flat, i in _leaves(data):
+        seen = walk.enter_leaf(flat, vote, never) if walk else None
+        if i < 0:
+            continue
         tns, tfs, inside = _slab_terms(data.nodes[flat], o, inv, par)
         tmin = _max3(tns)
         tmax = _min3(tfs)
         gate = ((tmin <= tmax) & (tmax >= rm.THRESHOLD) & (tmin < bt)
                 & inside)
+        if walk:
+            work[:, 1 if is_box[i] else 2] += seen & gate
         if is_box[i]:
             ok, t_hit, wtri, nrm = _box_face_hit(tns, tfs, inside, d,
                                                  inst_f[i], inst_i[i])
@@ -476,6 +555,8 @@ def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
         q, lo, ld = _to_local(inst_f[i], o, d)
         qc = (-q[0], -q[1], -q[2], q[3])
         tmpl_start, tri_count, wtri_start = tri_info[i]
+        if walk:
+            work[:, 3] += (seen & gate) * tri_count
         for j in range(tri_count):
             row = tmpl[tmpl_start + j]
             ok, tt, b0, b1, b2 = _template_tri(row, lo, ld)
@@ -503,11 +584,13 @@ def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
     )
 
 
-def _occlude_reference(queries, data: CastData):
+def _occlude_reference(queries, data: CastData,
+                       work: Optional[torch.Tensor] = None):
     """Any-hit walk of ``queries`` (a list of ``(ro [R,3], rd [R,3], max_t
     [R])``) over the leaves in walk order, sharing one leaf loop as K2
     does.  A query is blocked iff some hit has ``THRESHOLD <= t <= max_t``.
-    Returns one bool ``[R]`` per query."""
+    Returns one bool ``[R]`` per query.  ``work``: see ``WORK_COLUMNS``,
+    summed over the queries (the walk ends once every query is blocked)."""
     inst_f, inst_i, tmpl = (data.tables.inst_f32, data.tables.inst_i32,
                             data.tables.tmpl)
     is_box = (inst_i[:, _II_IS_BOX] > 0).cpu().tolist()
@@ -520,8 +603,24 @@ def _occlude_reference(queries, data: CastData):
                        par=par, inv=inv,
                        blk=torch.zeros(ro.shape[0], dtype=torch.bool,
                                        device=ro.device)))
+    walk = None if work is None else _WalkVisits(data, work, len(qs))
+
+    def vote(row):  # a node's vote: some unblocked query enters it
+        out = None
+        for qy in qs:
+            tmin, ok = _slab_vote(row, qy["o"], qy["inv"], qy["par"])
+            hit = ok & ~qy["blk"] & (tmin <= qy["mt"]) & (row[6] > 0.0)
+            out = hit if out is None else out | hit
+        return out
 
     for flat, i in _leaves(data):
+        if walk:
+            ended = qs[0]["blk"]
+            for qy in qs[1:]:
+                ended = ended & qy["blk"]
+            seen = walk.enter_leaf(flat, vote, ended)
+        if i < 0:
+            continue
         for qy in qs:
             o, d, mt, blk = qy["o"], qy["d"], qy["mt"], qy["blk"]
             tns, tfs, inside = _slab_terms(data.nodes[flat], o, qy["inv"],
@@ -530,6 +629,9 @@ def _occlude_reference(queries, data: CastData):
             tmax = _min3(tfs)
             active = ((tmin <= tmax) & (tmax >= rm.THRESHOLD) & ~blk
                       & (tmin <= mt) & inside)
+            if walk:
+                active_w = seen & active
+                work[:, 1 if is_box[i] else 2] += active_w
             if is_box[i]:
                 # blocked iff the slab hit time lands in [THRESHOLD, max_t]
                 t_hit = torch.where(tmin >= rm.THRESHOLD, tmin, tmax)
@@ -539,6 +641,8 @@ def _occlude_reference(queries, data: CastData):
                 _, lo, ld = _to_local(inst_f[i], o, d)
                 tmpl_start, tri_count = tri_info[i]
                 for j in range(tri_count):
+                    if walk:  # the triangle loop stops at the first block
+                        work[:, 3] += active_w & ~blk
                     ok, tt, _, _, _ = _template_tri(tmpl[tmpl_start + j],
                                                     lo, ld)
                     blk = blk | (active & ok & (tt <= mt))
@@ -546,17 +650,19 @@ def _occlude_reference(queries, data: CastData):
     return [qy["blk"] for qy in qs]
 
 
-def bvh_occlude_reference(ro, rd, max_t, data: CastData):
+def bvh_occlude_reference(ro, rd, max_t, data: CastData, *,
+                          work: Optional[torch.Tensor] = None):
     """Plain version of K3: bool ``[R]``, blocked iff some hit has
     ``THRESHOLD <= t <= max_t``."""
-    (blk,) = _occlude_reference([(ro, rd, max_t)], data)
+    (blk,) = _occlude_reference([(ro, rd, max_t)], data, work)
     return blk
 
 
-def bvh_occlude2_reference(o1, d1, mt1, o2, d2, mt2, data: CastData):
+def bvh_occlude2_reference(o1, d1, mt1, o2, d2, mt2, data: CastData, *,
+                           work: Optional[torch.Tensor] = None):
     """Plain version of K2: ``(blocked1, blocked2)`` bool ``[R]``, each
     equal to :func:`bvh_occlude_reference` of its query."""
-    b1, b2 = _occlude_reference([(o1, d1, mt1), (o2, d2, mt2)], data)
+    b1, b2 = _occlude_reference([(o1, d1, mt1), (o2, d2, mt2)], data, work)
     return b1, b2
 
 
@@ -576,14 +682,21 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_data(data: CastData, device):
-    t = data.tables
+def _check_tables(t: SceneTables, device):
     n_inst = t.inst_f32.shape[0]
-    n = data.n_leaves
     _check("inst_f32", t.inst_f32, torch.float32, (n_inst, _IF_WIDTH), device)
     _check("inst_i32", t.inst_i32, torch.int32, (n_inst, _II_WIDTH), device)
     _check("tmpl", t.tmpl, torch.float32, (t.tmpl.shape[0], _TF_WIDTH),
            device)
+
+
+def _check_data(data: CastData, device):
+    """The tables and the LBVH, which the walk kernels read."""
+    if data.nodes is None or data.ordering is None:
+        raise ValueError("the LBVH walk needs CastData.nodes and .ordering "
+                         "(prepare_cast leaves them out on the cull)")
+    _check_tables(data.tables, device)
+    n = data.n_leaves
     _check("nodes", data.nodes, torch.float32, (2 * n - 1, _NODE_WIDTH),
            device)
     _check("ordering", data.ordering, torch.int32, (n,), device)
@@ -708,7 +821,11 @@ def make_cuda_cast(data: CastData, cfg: RenderConfig):
     max_t)`` and ``occlude2(o1, d1, mt1, o2, d2, mt2)`` attributes, under
     the autodiff rules of ``cast_vjp``.  ``engine="cuda"`` goes through the
     dispatching wrappers; ``engine="torch"`` calls the plain versions on any
-    device."""
+    device.  The candidate-list cull has its own (``cull.make_cull_cast``;
+    ``engine.make_cast`` picks)."""
+    if data.nodes is None:
+        raise ValueError("make_cuda_cast walks the LBVH: CastData without "
+                         "nodes is the cull's (cull.make_cull_cast)")
     if cfg.engine == "cuda":
         queries = bvh_cast, bvh_occlude, bvh_occlude2
     elif cfg.engine == "torch":

@@ -15,8 +15,10 @@ import torch
 
 from ..scene import Camera, RenderConfig, Scene
 from .cast import CastFn, Hit, hit_shading_attrs
-from .cuda_engine import make_cuda_cast, prepare_cast
+from .cuda_engine import _use_walk, make_cuda_cast, prepare_cast
+from .cull import make_cull_cast
 from .geometry import WorldGeometry, camera_rays, expand_geometry
+from .mxu import make_mxu_cast, prepare_mxu_cast
 from .shading import check_lights, gather_material_rows, illuminate
 
 BLOCK = 32  # screen-space tile edge: one 32x32 block of rays
@@ -43,6 +45,10 @@ def check_config(scene: Scene, cfg: RenderConfig) -> None:
         raise NotImplementedError(
             "edge_aware_grads is not ported (ROADMAP.md Queue 1 item 7: "
             "edge-aware gradients with K1's exact_uv branch)")
+    if cfg.texture_mapping:
+        raise NotImplementedError(
+            "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
+            "ops surface and atlas sampling)")
     check_lights(scene, cfg)
 
 
@@ -85,10 +91,20 @@ def clamp_frame(acc):
 
 
 def make_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig) -> CastFn:
-    """The engine's cast for ``cfg.engine`` (``"cuda"`` kernels or the
-    ``"torch"`` plain versions), with its ``occlude``/``occlude2``
-    queries."""
-    return make_cuda_cast(prepare_cast(scene, geom, cfg), cfg)
+    """The engine's cast (``raytracer_tpu/render/engine.py`` ``make_cast``
+    and ``prepare_cast``) for ``cfg.engine`` (``"cuda"`` kernels or the
+    ``"torch"`` plain versions): ``pallas_kernel="mxu"`` takes the MXU cast
+    (K6; no shadow queries), ``"scalar"`` the LBVH walk (K1-K3) or, by
+    ``pallas_traversal``, the candidate-list cull (K4/K5)."""
+    if cfg.pallas_kernel == "mxu":
+        return make_mxu_cast(prepare_mxu_cast(scene, geom, cfg), cfg)
+    if cfg.pallas_kernel != "scalar":
+        raise ValueError(f"unknown pallas_kernel {cfg.pallas_kernel!r} "
+                         "(expected 'scalar' or 'mxu')")
+    data = prepare_cast(scene, geom, cfg)
+    if _use_walk(cfg, scene.inst_pos.shape[0]):
+        return make_cuda_cast(data, cfg)
+    return make_cull_cast(data, cfg)
 
 
 def _to_blocks(x, hp, wp):

@@ -82,15 +82,27 @@ def library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rt_bvh_cast.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp, vp,
-                                vp, vp, vp, vp, vp, ci, vp]
-    lib.rt_bvh_cast.restype = ci
-    lib.rt_bvh_occlude2.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
-                                    vp, vp, vp, vp, vp, ci, vp]
-    lib.rt_bvh_occlude2.restype = ci
-    lib.rt_bvh_occlude.argtypes = [vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
-                                   vp, ci, vp]
-    lib.rt_bvh_occlude.restype = ci
+    argtypes = {
+        # K1-K3 (bvh_kernels.cu)
+        "rt_bvh_cast": [vp, vp, ci, vp, vp, ci, vp, vp, vp,
+                        vp, vp, vp, vp, vp, ci, vp],
+        "rt_bvh_occlude2": [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
+                            vp, vp, vp, vp, vp, ci, vp],
+        "rt_bvh_occlude": [vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
+                           vp, ci, vp],
+        # K4, K5 (cull_kernels.cu)
+        "rt_cull_cast": [vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
+                         vp, vp, vp, vp, vp, ci, vp],
+        "rt_cull_occlude": [vp, vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
+                            vp, ci, vp],
+        # K6 (mxu_kernel.cu)
+        "rt_mxu_cast": [vp, vp, ci, ci, vp, vp, ci, vp, vp, ci, ci,
+                        vp, vp, vp, vp, ci, vp],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ci
     return lib
 
 

@@ -3,9 +3,11 @@
 Counterpart of ``raytracer_tpu/render/shading.py`` for opaque worlds:
 ``illuminate = Ke + Ka*ambience + sum over lights of phong(...)``, each
 light's shadow decided by one any-hit query.  With exactly 1 point + 1
-directional light and ``fused_shadows`` on, one walk answers both queries
-(K2); otherwise each light sends its own query (K3), the opaque fast path of
-``_march_shadow``.  The transmissive shadow march is not ported.
+directional light, ``fused_shadows`` on and a cast that has ``occlude2``,
+one call answers both queries (K2's fused walk, or two K5 queries on the
+cull); otherwise each light sends its own query (K3 or K5), the opaque fast
+path of ``_march_shadow``, or a closest-hit cast where the cast has no
+``occlude`` (the MXU cast).  The transmissive shadow march is not ported.
 
 Where the JAX package takes ``jnp.maximum``/``jnp.minimum`` against a
 constant, this module takes ``torch.maximum``/``torch.minimum`` against a
@@ -75,11 +77,13 @@ def check_lights(scene: Scene, cfg: RenderConfig) -> None:
             "refraction)")
 
 
-def _use_fused(scene: Scene, cfg: RenderConfig) -> bool:
-    """The JAX package's condition for the fused two-light round."""
+def _use_fused(scene: Scene, cfg: RenderConfig, cast_fn: CastFn) -> bool:
+    """The JAX package's condition for the fused two-light round: it needs
+    a cast with an ``occlude2`` query."""
     return (cfg.fused_shadows and not cfg.any_refractive
             and scene.lights.point_pos.shape[0] == 1
-            and scene.lights.dir_dir.shape[0] == 1)
+            and scene.lights.dir_dir.shape[0] == 1
+            and getattr(cast_fn, "occlude2", None) is not None)
 
 
 def shadow_rays(scene: Scene, hit_pos, active):
@@ -101,12 +105,20 @@ def march_shadow(cast_fn: CastFn, origin, dir_unit, max_t, light_col,
                  active):
     """The light arriving at ``origin`` [R,3] from ``light_col`` along
     ``dir_unit``: the opaque fast path of ``_march_shadow``, one any-hit
-    query (K3) -- a blocker within ``max_t`` kills the light.  Inactive
-    lanes park at 1e30 like the fused round's."""
+    query (K3 or K5) -- a blocker within ``max_t`` kills the light.  A cast
+    without ``occlude`` answers with its closest hit instead (``valid & t <=
+    max_t``, the closest hit being minimal).  Inactive lanes park at 1e30
+    like the fused round's."""
     dir_unit = dir_unit.expand(origin.shape)
     origin = torch.where(active[..., None], origin, 1e30)
-    blocked = active & cast_fn.occlude(origin + rm.THRESHOLD * dir_unit,
-                                       dir_unit, max_t)
+    o = origin + rm.THRESHOLD * dir_unit
+    occ = getattr(cast_fn, "occlude", None)
+    if occ is not None:
+        blocked = active & occ(o, dir_unit, max_t)
+    else:
+        hit = cast_fn(o, dir_unit)
+        t_fin = torch.where(hit.valid, hit.t, 1.0)
+        blocked = active & hit.valid & (t_fin <= max_t)
     lit = light_col.expand(origin.shape[:-1] + (4,))
     return torch.where(blocked[..., None], 0.0, lit)
 
@@ -120,7 +132,7 @@ def illuminate(scene: Scene, cast_fn: CastFn, cfg: RenderConfig, ray_o,
     col = rmats.ke + rmats.ka * scene.ambience
     lights = scene.lights
 
-    if _use_fused(scene, cfg):
+    if _use_fused(scene, cfg, cast_fn):
         o1, dir1, dist, o2, dir2 = shadow_rays(scene, hit_pos, active)
         b1, b2 = cast_fn.occlude2(o1, dir1, dist, o2, dir2, float("inf"))
         b1 = active & b1

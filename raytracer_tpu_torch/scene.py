@@ -95,7 +95,7 @@ class RenderConfig:
     recurse_depth: int = 2
     shadow_steps: int = 4
     engine: str = "torch"  # "torch" oracle | "cuda" kernel path
-    pallas_kernel: str = "scalar"  # kept name; only "scalar" is ported
+    pallas_kernel: str = "scalar"  # kept name: "scalar" (K1-K5) | "mxu" (K6)
     pallas_traversal: str = "auto"  # "cull" | "bvh" | "auto" (> 256 inst.)
     use_bvh: bool = True
     tile_rows: int = 0

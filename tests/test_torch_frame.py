@@ -144,12 +144,19 @@ def _material_world(tmp_path, change):
     "traversal_cull", "kernel_mxu", "edge_aware", "spp", "tile_cap",
     "texture", "reflective", "refractive", "vertex grads"])
 def test_unported_settings_raise(frames, tmp_path, change):
+    """Settings the port does not cover raise, naming the ROADMAP item.
+    The cull and the MXU kernel are ported now: they render terrain8's
+    frame (equal to the LBVH walk's), and the MXU kernel with edge-aware
+    gradients (the JAX package's reparam rule) still raises."""
     scene, cam, cfg = frames["scene"], frames["cam"], frames["cfg"]
     cfg = cfg.replace(engine="cuda", width=8, height=8)
-    if change == "traversal_cull":
-        cfg = cfg.replace(pallas_traversal="cull")
-    elif change == "kernel_mxu":
-        cfg = cfg.replace(pallas_kernel="mxu")
+    if change in ("traversal_cull", "kernel_mxu"):
+        ported = cfg.replace(pallas_traversal="cull") if change == \
+            "traversal_cull" else cfg.replace(pallas_kernel="mxu")
+        np.testing.assert_allclose(render_frame(scene, cam, ported).numpy(),
+                                   render_frame(scene, cam, cfg).numpy(),
+                                   rtol=0, atol=1e-5)
+        cfg = ported.replace(edge_aware_grads=True)
     elif change == "edge_aware":
         cfg = cfg.replace(edge_aware_grads=True)
     elif change == "spp":
@@ -170,6 +177,9 @@ def test_unported_settings_raise(frames, tmp_path, change):
         assert cfg.any_refractive == (change == "refractive")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(scene, cam, cfg)
+    if change == "texture":  # on the MXU cast too, whose tables ignore it
+        with pytest.raises(NotImplementedError, match="item 9"):
+            render_frame(scene, cam, cfg.replace(pallas_kernel="mxu"))
     if change == "refractive":  # the shadow march raises on its own too
         with pytest.raises(NotImplementedError, match="item 5"):
             shading.check_lights(scene, cfg)

@@ -37,8 +37,9 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    frame's point-light and directional shadow queries, both table kinds --
    max abs err 0 -- with the share of tiles whose lists overflow;
 10. K6 (the MXU cast) against its plain version on the 640x480 primary rays,
-   the random rays and the point-light shadow rays (parked lanes: the dense
-   sweep): t, id, u, v identical;
+   the random rays (every tile dense) and the point-light shadow rays
+   (parked lanes: the dense sweep), and on the 1920x1080 primary and shadow
+   rays: t, id, u, v identical; K5 also on the 1920x1080 shadow queries;
 11. terrain6 frames on the cull and on the MXU cast at 640x480 and
    1920x1080, "cuda" against "torch", with every launch counter reset just
    before: K4/K5 (or K6) launched, every other kernel not;
@@ -48,7 +49,15 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    before), grads "cuda" against "torch" at rtol 1e-4 / atol 1e-6; timings
    of the frames, the step and K4/K5/K6 against their plain versions, and
    torch.profiler summaries of the terrain6 frames on both paths and of
-   the cull's step.
+   the cull's step.  The cuda engine's MXU frames must never build the
+   [T, K, 40] copy of the columns (mxu.gather_columns is counted).
+
+Beside each kernel's ms per launch (CUDA events around the wrapper: the
+ctypes call and the output allocation included) the device time alone is
+printed, from a torch.profiler trace (every kernel and memset the wrapper
+launches), at 640x480 and at 1920x1080; for K6 also, from the blocks' own
+clock stamps, the share of the launch that is left when the median block of
+its working launch has ended.
 
 Each kernel's bound is the least time the card could take for its work at
 the main path's shapes: the larger of the bytes it must move (inputs read
@@ -56,9 +65,10 @@ once, outputs written once) over 3.35 TB/s and its FP32 operations over
 67 TFLOP/s (the H100 SXM's published peaks at 700 W).  For the walks and the
 lists (K1-K5) the operations are what this run's rays reach, counted by the
 plain versions (``work=``: the nodes, boxes and triangles each ray's kernel
-walk tests); for K6, the live columns of each tile (its staged columns with
+walk tests); for K6, the live columns of each tile (its listed columns with
 a triangle, or every triangle on a dense tile) at the operations a column
-needs.
+needs, and as bytes its rays, ids, info and outputs and the column table
+once (no staged copy of the columns: no implementation needs one).
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -133,6 +143,45 @@ def _ms(fn, reps=REPS, warmup=True):
     return statistics.median(times)
 
 
+def _trace_events(prof):
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            return json.load(fh)["traceEvents"]
+
+
+def _device_ms(fn, reps=10):
+    """Device ms per call of ``fn``: every kernel and memset it launches,
+    from a torch.profiler trace of ``reps`` calls.  A trace can come back
+    without the events of some calls, so each kernel's mean duration is
+    taken over the events that did arrive and weighted by how often a call
+    launches it (its count over the count of the call's least frequent
+    ``rt::`` kernel); an empty trace is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in _trace_events(prof):
+            if e.get("cat") in ("kernel", "gpu_memset"):
+                c = by_name.setdefault(e["name"], [0, 0.0])
+                c[0] += 1
+                c[1] += e["dur"] / 1e3
+        ours = [c[0] for k, c in by_name.items() if k.startswith("rt::")]
+        if ours:
+            calls = min(ours)
+            return sum(c[1] / c[0] * max(1, round(c[0] / calls))
+                       for c in by_name.values())
+    raise AssertionError("the profiler trace shows no kernel of the port")
+
+
 def _compare_hits(label, hk, hp):
     """K1 contract: valid, mat and tri identical; t at rtol 1e-5; normals
     (and uv) at atol 1e-5.  Returns the largest abs difference seen."""
@@ -205,24 +254,22 @@ def _profile(step, smi, steps=3, label="fwd+bwd"):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    kernels = [e for e in _trace_events(prof) if e.get("cat") == "kernel"]
     busy_ms = sum(e["dur"] for e in kernels) / 1e3 / steps
     by_name = {}
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    gather_ms = sum(v for k, v in by_name.items() if "gather" in k) / steps
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
            "kernels_per_step": len(kernels) / steps,
+           "gather_ms_per_step": gather_ms,
            "top_ms_per_step": [[k[:100], v / steps] for k, v in top]}
     print(f"profile {label} [{smi}]: wall {wall_ms:.3f} ms/step, device busy "
-          f"{busy_ms:.3f} ms, idle share {out['idle_share']:.3f}, "
-          f"{out['kernels_per_step']:.0f} kernels/step")
+          f"{busy_ms:.3f} ms (gather kernels {gather_ms:.3f} ms), idle share "
+          f"{out['idle_share']:.3f}, {out['kernels_per_step']:.0f} "
+          "kernels/step")
     for k, v in out["top_ms_per_step"]:
         print(f"  {v:9.3f} ms  {k}")
     return out
@@ -329,25 +376,56 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
             print(f"K5 {tname:8s} {qname:11s}: blocked {int(bk.sum())} of "
                   f"{bk.numel()} padded rays, identical to plain")
 
+    big = SIZES[-1]
+    big_key = f"{big[0]}x{big[1]}"
+    for qname, (o, d, mt) in shadow_q[big].items():
+        lay, o_p, d_p, cand, info, tile = lists(cfgs[big], o, d)
+        mt_p = lay.pad(mt, 0.0)
+        bk = cull.cull_occlude(o_p, d_p, mt_p, cand, info, tile, data.tables)
+        bp = cull.cull_occlude_reference(o_p, d_p, mt_p, cand, info, tile,
+                                         data.tables)
+        torch.cuda.synchronize()
+        if not torch.equal(bk, bp):
+            raise AssertionError(f"K5 {big_key}/{qname}: mask differs on "
+                                 f"{int((bk != bp).sum())} rays")
+        print(f"K5 box      {qname:11s} {big_key}: blocked {int(bk.sum())} "
+              f"of {bk.numel()} padded rays, identical to plain")
+
     # ---- phase 10: K6 against its plain version -----------------------------
     cfg_m = cfg.replace(pallas_kernel="mxu")
     mdata = mxu.prepare_mxu_cast(scene, geom, cfg_m)
 
     def staging(o, d):
+        """K6's arguments for rays ``o, d``, and its plain version's (which
+        also reads the columns staged as [T, K, 40])."""
         lay = cull.CullLayout.of(o.shape[0], cfg.pallas_ray_chunk,
                                  mdata.tile)
         o_p, d_p = lay.pad_rays(o, d, 0.0)
-        st = mxu.stage_mxu(o_p, d_p, mdata)
-        return (st[0], mdata.columns, mdata.n_tris) + st[1:]
+        info, staged, ids, rd6, rp8 = mxu.stage_mxu(o_p, d_p, mdata)
+        lean = mxu.stage_mxu(o_p, d_p, mdata, columns=False)
+        if lean[1] is not None or not all(
+                torch.equal(a, b) for a, b in zip(
+                    (info, ids, rd6, rp8), lean[:1] + lean[2:])):
+            raise AssertionError("stage_mxu without columns differs")
+        return ((info, mdata.columns, mdata.n_tris, ids, rd6, rp8,
+                 mdata.tile, mdata.max_tris),
+                (info, mdata.columns, mdata.n_tris, staged, ids, rd6, rp8,
+                 mdata.tile))
 
+    ro_b, rd_b, _, _ = _frame_rays_blocked(cams[big], cfgs[big])
     m_rays = dict(k_rays)
     m_rays[f"shadow {main_key}"] = shadow_q[main]["point"][:2]
+    m_rays[f"primary {big_key}"] = (ro_b, rd_b)
+    m_rays[f"shadow {big_key}"] = shadow_q[big]["point"][:2]
     m_args = {}
     for rname, (o, d) in m_rays.items():
-        args = staging(o, d)
+        args, args_plain = staging(o, d)
         m_args[rname] = args
-        ok_ = mxu.mxu_cast(*args, mdata.tile)
-        op_ = mxu.mxu_cast_reference(*args, mdata.tile)
+        if rname == f"primary {main_key}":
+            k6_plain = args_plain
+        ok_ = mxu.mxu_cast(*args)
+        op_ = mxu.mxu_cast_reference(*args_plain)
+        del args_plain
         torch.cuda.synchronize()
         for name, a, b in zip(("t", "id", "u", "v"), ok_, op_):
             if not torch.equal(a, b):
@@ -355,7 +433,7 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
                                      f"{int((a != b).sum())} rays")
             out["errs"]["mxu_cast"] = max(out["errs"]["mxu_cast"], float(
                 torch.where(a == b, 0.0, (a - b).abs()).max()))
-        out["overflow"][f"k6_{rname.split()[0]}_{main_key}"] = share(args[0])
+        out["overflow"][f"k6_{'_'.join(rname.split())}"] = share(args[0])
         print(f"K6 {rname:16s}: {int(torch.isfinite(ok_[0]).sum())} hits, "
               f"{share(args[0]):.3f} of {args[0].shape[0]} tiles dense, "
               "t/id/u/v identical to plain")
@@ -368,12 +446,26 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
              "mxu": (cfg_m, ("mxu_cast",))}
     launches = {}
     frames6 = {}
+    gathers = [0]
+    gather_columns = mxu.gather_columns
+
+    def counted_gather(columns, ids):
+        gathers[0] += 1
+        return gather_columns(columns, ids)
+
     for pname, (pcfg, used) in paths.items():
         for k in all_k.values():
             k.launches = 0
-        imgs = {s: render_frame(scene, cams[s], pcfg.replace(
-            width=s[0], height=s[1])) for s in SIZES}
+        mxu.gather_columns = counted_gather
+        try:
+            imgs = {s: render_frame(scene, cams[s], pcfg.replace(
+                width=s[0], height=s[1])) for s in SIZES}
+        finally:
+            mxu.gather_columns = gather_columns
         torch.cuda.synchronize()
+        if gathers[0]:
+            raise AssertionError(f"{pname} frames staged the [T, K, 40] "
+                                 f"columns {gathers[0]} times")
         counts = {name: k.launches for name, k in all_k.items()}
         print(f"terrain6 {pname} frames launches: {counts}")
         for name, n in counts.items():
@@ -418,8 +510,6 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
         out["frames"][f"cull_vs_lbvh_{wname}"] = d
 
     # ---- phase 13: the cull's training step ---------------------------------
-    big = SIZES[-1]
-    big_key = f"{big[0]}x{big[1]}"
     target0 = torch.zeros(big[1], big[0], 4, device=dev)
 
     def loss_and_grads(engine):
@@ -479,7 +569,7 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
     o, d, mt = shadow_q[main]["point"]
     lay5, o5, d5, cand5, info5, tile5 = lists(cfgs[main], o, d)
     k5 = (o5, d5, lay5.pad(mt, 0.0), cand5, info5, tile5, data.tables)
-    k6 = m_args[f"primary {main_key}"] + (mdata.tile,)
+    k6 = m_args[f"primary {main_key}"]
     timing.update({
         "k4_ms": _ms(lambda: cull.cull_cast(*k4)),
         "k4_plain_ms": _ms(lambda: cull.cull_cast_reference(*k4),
@@ -488,7 +578,7 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
         "k5_plain_ms": _ms(lambda: cull.cull_occlude_reference(*k5),
                            reps=PLAIN_REPS),
         "k6_ms": _ms(lambda: mxu.mxu_cast(*k6)),
-        "k6_plain_ms": _ms(lambda: mxu.mxu_cast_reference(*k6),
+        "k6_plain_ms": _ms(lambda: mxu.mxu_cast_reference(*k6_plain),
                            reps=PLAIN_REPS),
     })
     print(f"time terrain6 {main_key} [{smi}]: K4 {timing['k4_ms']:.4f} ms / "
@@ -496,6 +586,36 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
           f"ms / plain {timing['k5_plain_ms']:.3f} ms; K6 "
           f"{timing['k6_ms']:.4f} ms / plain {timing['k6_plain_ms']:.3f} ms "
           f"(median of {REPS} / {PLAIN_REPS})")
+
+    # the kernels alone (device time of a profiler trace), both sizes; for
+    # K6 the blocks' own stamps: how much of the launch is left when the
+    # median block of its working launch (the chunk workers) has ended
+    lay_b, ob, db, cand_b, info_b, tile_b = lists(cfgs[big], ro_b, rd_b)
+    o, d, mt = shadow_q[big]["point"]
+    lay5b, o5b, d5b, cand5b, info5b, tile5b = lists(cfgs[big], o, d)
+    per_size = {
+        main_key: (k4, k5, k6),
+        big_key: ((ob, db, cand_b, info_b, tile_b, data.tables),
+                  (o5b, d5b, lay5b.pad(mt, 0.0), cand5b, info5b, tile5b,
+                   data.tables), m_args[f"primary {big_key}"])}
+    for key, (a4, a5, a6) in per_size.items():
+        dev_ms = {"k4": _device_ms(lambda: cull.cull_cast(*a4)),
+                  "k5": _device_ms(lambda: cull.cull_occlude(*a5)),
+                  "k6": _device_ms(lambda: mxu.mxu_cast(*a6))}
+        stamps = mxu.mxu_cast(*a6, stamps=True)[4]
+        torch.cuda.synchronize()
+        workers = stamps[a6[0].shape[0]:]
+        span = int(stamps[:, 1].max() - stamps[:, 0].min())
+        tail = int(workers[:, 1].max() - workers[:, 1].median())
+        timing[f"device_ms_{key}"] = dev_ms
+        timing[f"k6_stamps_{key}"] = {
+            "span_ms": span / 1e6, "after_median_worker_ms": tail / 1e6,
+            "tail_share": tail / max(span, 1)}
+        print(f"device time terrain6 {key} [{smi}]: K4 {dev_ms['k4']:.4f} "
+              f"ms, K5 {dev_ms['k5']:.4f} ms, K6 {dev_ms['k6']:.4f} ms; K6 "
+              f"blocks span {span / 1e6:.4f} ms, {tail / 1e6:.4f} ms "
+              f"({tail / max(span, 1):.3f}) of it after the median worker "
+              "block ended")
 
     # ---- bounds at the main path's shapes -----------------------------------
     tab_bytes = _nbytes(data.tables.inst_f32, data.tables.inst_i32,
@@ -510,9 +630,9 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
         _nbytes(*k5[:5], b5) + tab_bytes,
         _work_ops(_work(cull.cull_occlude_reference, *k5),
                   closest_hit=False))
-    # K6: a staged tile's live columns hold a triangle (id >= 0); a dense
+    # K6: a listed tile's live columns hold a triangle (id >= 0); a dense
     # tile's are the n_tris triangles of the table, not its zero padding
-    info6, ids6 = k6[0], k6[4]
+    info6, ids6 = k6[0], k6[3]
     over6 = info6[:, 1] > 0
     n_dense = int(over6.sum())
     live_staged = int((ids6[~over6] >= 0.0).sum())
@@ -520,6 +640,7 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
     out["k6_columns"] = {"live_staged": live_staged,
                          "staged": (info6.shape[0] - n_dense) * mdata.k_cols,
                          "dense_tiles": n_dense, "n_tris": mdata.n_tris}
+    # bytes: info, the table once, ids, the ray rows; t, id, u, v out
     out["bounds"]["mxu_cast"] = _bound(
         _nbytes(*[x for x in k6 if isinstance(x, torch.Tensor)])
         + 4 * 4 * info6.shape[0] * mdata.tile,
@@ -717,12 +838,19 @@ def main(argv=None) -> int:
             "k2_ms": _ms(lambda: ce.bvh_occlude2(*occ, data)),
             "k2_plain_ms": _ms(lambda: ce.bvh_occlude2_reference(*occ,
                                                                  data)),
+            "k1_device_ms": _device_ms(lambda: ce.bvh_cast(ro_s, rd_s,
+                                                           data)),
+            "k2_device_ms": _device_ms(lambda: ce.bvh_occlude2(*occ, data)),
+            "k3_device_ms": _device_ms(lambda: ce.bvh_occlude(*occ[:3],
+                                                              data)),
         })
         t = timing[key]
         print(f"time {key} [{smi}]: frame cuda {t['frame_ms_cuda']:.3f} ms "
               f"/ torch {t['frame_ms_torch']:.3f} ms; K1 {t['k1_ms']:.4f} ms "
               f"/ plain {t['k1_plain_ms']:.3f} ms; K2 {t['k2_ms']:.4f} ms "
-              f"/ plain {t['k2_plain_ms']:.3f} ms (median of {REPS})")
+              f"/ plain {t['k2_plain_ms']:.3f} ms (median of {REPS}); device "
+              f"time alone K1 {t['k1_device_ms']:.4f}, K2 "
+              f"{t['k2_device_ms']:.4f}, K3 {t['k3_device_ms']:.4f} ms")
     # ---- phase 6: K3 against its plain version and K2 -----------------------
     errs["bvh_occlude"] = 0.0
     single = (("point", (o1, d1, dist)), ("directional", (o2, d2, mt_inf)))
@@ -907,6 +1035,10 @@ def main(argv=None) -> int:
     timing[main_key].update({k: t6["timing"][k] for k in (
         "k4_ms", "k4_plain_ms", "k5_ms", "k5_plain_ms", "k6_ms",
         "k6_plain_ms")})
+    for s in SIZES:
+        key = f"{s[0]}x{s[1]}"
+        timing[key].update({f"{k}_device_ms": v for k, v in
+                            t6["timing"][f"device_ms_{key}"].items()})
     report["terrain6"] = t6
     report["bounds"] = bounds
     report["timing"] = timing
@@ -928,7 +1060,8 @@ def main(argv=None) -> int:
          "max_abs_err": errs[name], "ms": timing[main_key][f"{key}_ms"],
          "plain_ms": timing[main_key][f"{key}_plain_ms"],
          "bound_ms": bounds[name]["bound_ms"],
-         "bound_by": bounds[name]["bound_by"], "library_ms": None}
+         "bound_by": bounds[name]["bound_by"], "library_ms": None,
+         "device_ms": timing[main_key][f"{key}_device_ms"]}
         for name, source, replaces, key in rows]}
     report["kernels"] = kernels_line["kernels"]
     report["seconds"] = time.perf_counter() - t_start

@@ -26,9 +26,11 @@ for nearly every instance and overflows: that is the JAX package's behaviour,
 kept.
 
 The CUDA kernels (``csrc/cull_kernels.cu``) run one ray per thread over its
-tile's list; the plain versions take the same instances in the same order
-for each ray (slot ``k`` of the ray's tile, or ``k`` itself on overflow) with
-the table rows gathered per ray, and give the same bits.
+tile's list (K5 from a copy of the list in shared memory, four entries at a
+time, leaving early what no listed box can block); the plain versions take
+the same instances in the same order for each ray (slot ``k`` of the ray's
+tile, or ``k`` itself on overflow) with the table rows gathered per ray, and
+give the same bits.
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ from .cast_vjp import cast_detached, occlude2_detached, occlude_detached
 
 LANES = 128  # the JAX package's lane width: a tile is tile_rows * LANES rays
 MAX_CAND = 64  # make_pallas_cast's default list length
+# K5 stages a tile's list in shared memory: box, flags and instance of an
+# entry, and its share of the box of its group of four
+_K5_ENTRY_BYTES = 32 + 8
+_SHARED_BYTES = 232448  # dynamic shared memory a block can have (H100)
 
 
 def auto_tile_rows(width: int, height: int) -> int:
@@ -393,6 +399,14 @@ def cull_occlude(ro, rd, max_t, cand, info, tile: int,
         return cull_occlude_reference(ro, rd, max_t, cand, info, tile,
                                       tables)
     ce._check_tables(tables, dev)
+    n_inst = tables.inst_f32.shape[0]
+    entries = max(cand.shape[1], n_inst)
+    if (entries + 3) * _K5_ENTRY_BYTES > _SHARED_BYTES:
+        raise ValueError(f"K5 stages a tile's list in shared memory: "
+                         f"{entries} entries of {_K5_ENTRY_BYTES} bytes "
+                         f"exceed a block's {_SHARED_BYTES}")
+    if tables.inst_f32.data_ptr() % 16:
+        raise ValueError("inst_f32: K5 reads 16-byte aligned rows")
     from . import kernels
 
     blk = torch.empty(R, dtype=torch.bool, device=dev)
@@ -400,8 +414,8 @@ def cull_occlude(ro, rd, max_t, cand, info, tile: int,
         err = kernels.library().rt_cull_occlude(
             ce._ptr(ro), ce._ptr(rd), ce._ptr(max_t), R, ce._ptr(cand),
             ce._ptr(info), cand.shape[1], tile, ce._ptr(tables.inst_f32),
-            ce._ptr(tables.inst_i32), ce._ptr(tables.tmpl), ce._ptr(blk),
-            dev.index, kernels.stream_handle(dev))
+            ce._ptr(tables.inst_i32), n_inst, ce._ptr(tables.tmpl),
+            ce._ptr(blk), dev.index, kernels.stream_handle(dev))
         ce._raise_on(err, "cull_occlude")
         cull_occlude.launches += 1
     return blk

@@ -93,11 +93,13 @@ def library() -> ctypes.CDLL:
         # K4, K5 (cull_kernels.cu)
         "rt_cull_cast": [vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
                          vp, vp, vp, vp, vp, ci, vp],
-        "rt_cull_occlude": [vp, vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
-                            vp, ci, vp],
+        "rt_cull_occlude": [vp, vp, vp, ci, vp, vp, ci, ci, vp, vp, ci,
+                            vp, vp, ci, vp],
         # K6 (mxu_kernel.cu)
-        "rt_mxu_cast": [vp, vp, ci, ci, vp, vp, ci, vp, vp, ci, ci,
-                        vp, vp, vp, vp, ci, vp],
+        "rt_mxu_cast": [vp, vp, ci, vp, ci, ci, vp, vp, ci, ci,
+                        vp, vp, vp, vp, vp, vp, vp, ci, vp],
+        "rt_mxu_workers": [ci],
+        "rt_mxu_split": [],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

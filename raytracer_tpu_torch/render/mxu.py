@@ -14,15 +14,17 @@ numerator over the denominator.
   table, zero-padded to ``Wp`` (a multiple of ``k_cols``), exact FP32.
 * :func:`stage_mxu`: ``make_mxu_cast``'s staging -- the candidate lists of
   ``cull.tile_candidates`` with ``max_cand = k_cols // max_tris`` slots, the
-  per-tile column ids and the gathered columns, the ray rows ``rd6 = [d, o x
-  d, 0, 0]`` and ``rp8 = [o, d, 1, 0]``.
+  per-tile column ids and (for the plain version) the gathered columns, the
+  ray rows ``rd6 = [d, o x d, 0, 0]`` and ``rp8 = [o, d, 1, 0]``.
 * K6 ``_mxu_kernel`` -> :func:`mxu_cast` / :func:`mxu_cast_reference`: per
-  ray, the first minimum over the tile's staged columns, or over all ``Wp``
+  ray, the first minimum over the tile's live columns, or over all ``Wp``
   columns when the tile's list overflowed.
 
-The staged columns are laid out ``[T, K, 40]`` (the five rows of a column
-side by side) where the JAX package keeps five ``[T, 8, K]`` operands: the
-CUDA kernel reads a column as ten 16-byte loads.  The values are the same.
+The plain version reads the columns staged as ``[T, K, 40]`` (the five rows
+of a column side by side) where the JAX package keeps five ``[T, 8, K]``
+operands; the values are the same.  The CUDA kernel takes no staged copy: it
+gathers each live column from the ``[Wp, 40]`` table by its id, as ten
+16-byte loads (``csrc/mxu_kernel.cu``).
 Rays are padded as ``engine.make_cast`` pads them for this kernel: chunks of
 ``cfg.pallas_ray_chunk``, then a multiple of the 512-ray tile, pad rows at
 origin 0 with direction (0, 0, 1).  The cast gives no normal and no
@@ -50,6 +52,9 @@ K_COLS = 384  # staged columns per tile
 ROW = 8  # floats per table row
 COL = 5 * ROW  # floats per staged column
 _GROUP = 1 << 22  # plain version: ray x column pairs per step
+# K6 holds a chunk's list, 2 * ceil(k_cols / 40) ints, in 24 KB of shared
+# memory
+_MAX_K_COLS = 40 * 3072
 
 
 @dataclass
@@ -131,11 +136,22 @@ def prepare_mxu_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig,
                    k_cols=k_cols)
 
 
-def stage_mxu(ro: torch.Tensor, rd: torch.Tensor, data: MxuData):
+def gather_columns(columns: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The columns ``[T, K, 40]`` of ``ids`` ``[T, K]`` (a dead column takes
+    row 0; its id keeps it out of every result)."""
+    safe = torch.clamp(ids, 0, columns.shape[0] - 1).long()
+    return columns[safe].contiguous()
+
+
+def stage_mxu(ro: torch.Tensor, rd: torch.Tensor, data: MxuData,
+              columns: bool = True):
     """``make_mxu_cast``'s staging for padded rays ``[T * tile, 3]``.
     Returns ``(info [T, 2] i32, staged [T, K, 40] f32, ids [T, K] f32,
     rd6 [R, 8] f32, rp8 [R, 8] f32)``; ``ids`` is the world triangle of
-    each column, -1 for a dead one."""
+    each column, -1 for a dead one.  The live columns lie within the first
+    ``info[t, 0] * max_tris`` of a tile.  ``columns=False`` leaves the
+    gather out and returns ``None`` for ``staged`` (the CUDA kernel gathers
+    the live columns itself)."""
     tab = data.tables
     k, max_tris = data.k_cols, data.max_tris
     slots = k // max_tris
@@ -157,14 +173,13 @@ def stage_mxu(ro: torch.Tensor, rd: torch.Tensor, data: MxuData):
                 & (tri_off[None] < tab.inst_count[cand_inst][:, tri_in_slot]))
     row_ids = col_start + tri_off[None]
     ids = torch.where(col_live, row_ids.to(torch.float32), -1.0)
-    safe = torch.clamp(torch.where(col_live, row_ids, 0), 0, data.wp - 1)
-    staged = data.columns[safe.long()]  # [T, K, 40]
+    staged = gather_columns(data.columns, ids) if columns else None
 
     m = rm.cross(ro, rd)
     z1 = ro.new_zeros(ro.shape[0], 1)
     rd6 = torch.cat([rd, m, z1, z1], -1)
     rp8 = torch.cat([ro, rd, torch.ones_like(z1), z1], -1)
-    return info, staged.contiguous(), ids.contiguous(), rd6, rp8
+    return info, staged, ids.contiguous(), rd6, rp8
 
 
 # ---------------------------------------------------------------------------
@@ -251,45 +266,71 @@ def mxu_cast_reference(info, columns, n_tris: int, staged, ids, rd6, rp8,
     return tuple(x.reshape(-1) for x in out)
 
 
-def mxu_cast(info, columns, n_tris: int, staged, ids, rd6, rp8, tile: int):
+def mxu_cast(info, columns, n_tris: int, ids, rd6, rp8, tile: int,
+             max_tris: int, *, stamps: bool = False):
     """K6 (``_mxu_kernel``) on padded rays ``[T * tile]``: ``(t, id, u,
-    v)`` f32.  ``columns`` ``[Wp, 40]``, ``staged`` ``[T, K, 40]``,
-    ``ids`` ``[T, K]`` f32, ``rd6``/``rp8`` ``[T * tile, 8]``, ``info``
-    ``[T, 2]`` i32."""
+    v)`` f32.  ``columns`` ``[Wp, 40]``, ``ids`` ``[T, K]`` f32 (the
+    staging's: a tile's live columns lie within its first ``info[t, 0] *
+    max_tris``; an id beyond them is dead whatever it says), ``rd6``/``rp8``
+    ``[T * tile, 8]``, ``info`` ``[T, 2]`` i32.  The kernel gathers the live
+    columns from ``columns`` itself; on CPU tensors the plain version
+    answers, on the columns staged here.  ``stamps=True`` (CUDA only) also
+    returns the start and end in ns of each block, i64 ``[T + W, 2]``: the
+    ``T`` blocks of the launch over the tiles, then the ``W`` blocks that
+    work off the chunks of the tiles that have several."""
     T = info.shape[0]
     R = T * tile
     dev = rd6.device
-    k = staged.shape[1]
+    k = ids.shape[1] if ids.dim() == 2 else 0
     wp = columns.shape[0]
     ce._check("info", info, torch.int32, (T, 2), dev)
     ce._check("columns", columns, torch.float32, (wp, COL), dev)
-    ce._check("staged", staged, torch.float32, (T, k, COL), dev)
     ce._check("ids", ids, torch.float32, (T, k), dev)
     ce._check("rd6", rd6, torch.float32, (R, ROW), dev)
     ce._check("rp8", rp8, torch.float32, (R, ROW), dev)
-    if k % 64 or wp % k or not 0 < tile <= 512 or tile % 32:
-        raise ValueError(f"K6 takes k_cols a multiple of 64 dividing Wp and "
-                         f"tiles of 32..512 rays (k_cols {k}, Wp {wp}, tile "
-                         f"{tile})")
+    if (k % 64 or k == 0 or wp % k or not 0 < tile <= 512 or tile % 32
+            or max_tris <= 0 or not 0 <= n_tris <= wp):
+        raise ValueError(f"K6 takes k_cols a multiple of 64 dividing Wp, "
+                         f"n_tris <= Wp and tiles of 32..512 rays (k_cols "
+                         f"{k}, Wp {wp}, n_tris {n_tris}, tile {tile}, "
+                         f"max_tris {max_tris})")
     if ce._device_kind(rd6) == "cpu":
-        return mxu_cast_reference(info, columns, n_tris, staged, ids, rd6,
+        if stamps:
+            raise ValueError("K6's block stamps exist on the card only")
+        listed = (torch.arange(k, device=dev)[None, :]
+                  < info[:, :1] * max_tris)
+        ids = torch.where(listed, ids, -1.0)
+        return mxu_cast_reference(info, columns, n_tris,
+                                  gather_columns(columns, ids), ids, rd6,
                                   rp8, tile)
-    for name, x in (("columns", columns), ("staged", staged)):
+    if k > _MAX_K_COLS:
+        raise ValueError(f"K6 holds a chunk's list in shared memory: k_cols "
+                         f"{k} > {_MAX_K_COLS}")
+    for name, x in (("columns", columns), ("rd6", rd6), ("rp8", rp8)):
         if x.data_ptr() % 16:
-            raise ValueError(f"{name}: K6 reads 16-byte aligned columns")
+            raise ValueError(f"{name}: K6 reads 16-byte aligned rows")
     from . import kernels
 
+    lib = kernels.library()
     outs = [torch.empty(R, dtype=torch.float32, device=dev)
             for _ in range(4)]
+    # scratch: the key per ray that merges a tile's chunks, and the list of
+    # the (tile, chunk) items of the tiles that have several
+    keys = torch.empty(R, dtype=torch.int64, device=dev)
+    work = torch.empty(2 + 2 * T * lib.rt_mxu_split(), dtype=torch.int32,
+                       device=dev)
+    times = (torch.zeros(T + lib.rt_mxu_workers(dev.index), 2,
+                         dtype=torch.int64, device=dev) if stamps else None)
     if R > 0:
-        err = kernels.library().rt_mxu_cast(
-            ce._ptr(info), ce._ptr(columns), n_tris, wp, ce._ptr(staged),
-            ce._ptr(ids), k, ce._ptr(rd6), ce._ptr(rp8), R, tile,
-            *[ce._ptr(x) for x in outs], dev.index,
+        err = lib.rt_mxu_cast(
+            ce._ptr(info), ce._ptr(columns), n_tris, ce._ptr(ids), k,
+            max_tris, ce._ptr(rd6), ce._ptr(rp8), R, tile,
+            *[ce._ptr(x) for x in outs], ce._ptr(keys), ce._ptr(work),
+            ce._ptr(times) if stamps else None, dev.index,
             kernels.stream_handle(dev))
         ce._raise_on(err, "mxu_cast")
         mxu_cast.launches += 1
-    return tuple(outs)
+    return tuple(outs) + ((times,) if stamps else ())
 
 
 mxu_cast.launches = 0
@@ -300,20 +341,23 @@ def make_mxu_cast(data: MxuData, cfg: RenderConfig):
     branch: ``detach_visibility`` over the ray-chunked kernel).  The hit has
     no normal and no material, and the cast has no ``occlude``/``occlude2``
     queries.  ``engine="torch"`` takes the plain version."""
-    if cfg.engine == "cuda":
-        kernel = mxu_cast
-    elif cfg.engine == "torch":
-        kernel = mxu_cast_reference
-    else:
+    if cfg.engine not in ("cuda", "torch"):
         raise ValueError(f"unknown engine {cfg.engine!r} "
                          "(expected 'torch' or 'cuda')")
+    plain = cfg.engine == "torch"
 
     def query(ro, rd, _data):
         lay = CullLayout.of(ro.shape[0], cfg.pallas_ray_chunk, data.tile)
         ro_p, rd_p = lay.pad_rays(ro, rd, 0.0)
-        info, staged, ids, rd6, rp8 = stage_mxu(ro_p, rd_p, data)
-        t, idf, u, v = kernel(info, data.columns, data.n_tris, staged, ids,
-                              rd6, rp8, data.tile)
+        info, staged, ids, rd6, rp8 = stage_mxu(ro_p, rd_p, data,
+                                                columns=plain)
+        if plain:
+            t, idf, u, v = mxu_cast_reference(
+                info, data.columns, data.n_tris, staged, ids, rd6, rp8,
+                data.tile)
+        else:
+            t, idf, u, v = mxu_cast(info, data.columns, data.n_tris, ids,
+                                    rd6, rp8, data.tile, data.max_tris)
         t = lay.unpad(t)
         return Hit(valid=torch.isfinite(t), t=t,
                    wtri=torch.clamp(lay.unpad(idf), min=0.0).to(torch.int32),

@@ -8,8 +8,9 @@ import.  Run on a GPU machine with::
 
 K1 and K4 must give the plain version's valid, triangle and material
 exactly, t at rtol 1e-5 and normals/uv at atol 1e-5; K2's, K3's and K5's
-masks must be identical (K3's also to K2's); K6's t, id, u and v must equal
-its plain version's; a frame through the kernels must equal the ``"torch"``
+masks must be identical (K3's also to K2's; K5's also on overflowed tiles,
+parked lanes and degenerate rays); K6's t, id, u and v must equal its plain
+version's (listed, dense and sky tiles, ties between a tile's chunks); a frame through the kernels must equal the ``"torch"``
 engine at atol 1e-5 (terrain8 on the LBVH walk, terrain6 on the cull and on
 the MXU cast), the per-light frame (K3) the fused one bit for bit; and the
 loss gradients of both engines must agree at rtol 1e-4 / atol 1e-6."""
@@ -256,23 +257,212 @@ def test_cull_occlude_kernel_matches_plain(gpu_world6, tables, max_t):
     assert 0 < int(bk.sum()) < bk.numel()
 
 
-@pytest.mark.parametrize("rays", ["primary", "random"])
-def test_mxu_kernel_matches_plain(gpu_world6, rays):
+def _cull_shadow_query(gpu_world6, max_t):
+    """A shadow query of the primary frame on padded rays (missed lanes
+    parked at 1e30): to the point light (finite max_t) or along the
+    directional light (+inf)."""
+    ro, rd = gpu_world6["rays"]["primary"]
+    tab = gpu_world6["tables"]["box"]
+    tile = gpu_world6["tile"]
+    o_p, d_p, cand, info = _lists(gpu_world6, ro, rd)
+    hit = cull.cull_cast(o_p, d_p, cand, info, tile, tab)
+    hit_t = torch.where(hit.valid, hit.t, 1.0)
+    sq = shadow_rays(gpu_world6["scene"], o_p + hit_t[:, None] * d_p,
+                     hit.valid)
+    k = 0 if max_t == "finite" else 3
+    mt = sq[2] if max_t == "finite" else torch.full_like(sq[2], np.inf)
+    return sq[k], sq[k + 1].contiguous(), mt, hit.valid
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("case", ["overflow", "parked", "degenerate"])
+def test_cull_occlude_kernel_hard_tiles(gpu_world6, tables, case):
+    """K5 where its early exits and its list staging are at stake: tiles
+    whose lists overflow (every instance staged), tiles whose lanes are all
+    parked, and rays the slab arithmetic treats specially (axis-parallel,
+    origins inside a box, directions so small that 1 / d overflows, max_t of
+    inf, 0 and NaN)."""
+    tab = gpu_world6["tables"][tables]
+    tile = gpu_world6["tile"]
+    o, d, mt, valid = _cull_shadow_query(gpu_world6, "finite")
+    if case == "parked":
+        o = torch.full_like(o, 1.0e30)
+    elif case == "degenerate":
+        n = o.shape[0]
+        idx = torch.arange(n, device=o.device)
+        box = tab.inst_f32[idx % tab.inst_f32.shape[0]]
+        centre = 0.5 * (box[:, ce._IF_BMIN:ce._IF_BMIN + 3]
+                        + box[:, ce._IF_BMAX:ce._IF_BMAX + 3])
+        o = torch.where((idx % 5 == 0)[:, None], centre, o)  # inside a box
+        o = torch.where((idx % 7 == 0)[:, None],
+                        box[:, ce._IF_BMIN:ce._IF_BMIN + 3], o)  # on a corner
+        d = d.clone()
+        d[idx % 3 == 0, 0] = 0.0  # axis-parallel
+        d[idx % 4 == 0, 2] = 0.0
+        d[idx % 11 == 0, 1] = 1e-42  # 1 / d overflows
+        d[idx % 13 == 0, 0] = -1e-42
+        mt = mt.clone()
+        mt[idx % 2 == 0] = np.inf
+        mt[idx % 17 == 0] = 0.0
+        mt[idx % 19 == 0] = np.nan
+    cand, info = cull.tile_candidates(o, d, tile, tab.inst_f32,
+                                      cull.MAX_CAND)
+    if case == "overflow":
+        assert bool((info[:, 1] > 0).any())
+        sel = torch.nonzero(info[:, 1] > 0).flatten()
+        rows = (sel[:, None] * tile + torch.arange(
+            tile, device=o.device)[None]).flatten()
+        o, d, mt = o[rows].contiguous(), d[rows].contiguous(), mt[rows]
+        cand, info = cand[sel].contiguous(), info[sel].contiguous()
+        assert int(info[:, 0].min()) == tab.inst_f32.shape[0]
+    bk = cull.cull_occlude(o, d, mt, cand, info, tile, tab)
+    bp = cull.cull_occlude_reference(o, d, mt, cand, info, tile, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(bk, bp)
+    if case == "parked":
+        assert not bool(bk.any())
+    else:
+        assert 0 < int(bk.sum()) < bk.numel()
+
+
+def _mxu_staging(gpu_world6, o, d, k_cols=mxu.K_COLS):
+    """K6's inputs for rays ``o, d``: the kernel's arguments and the plain
+    version's (which also takes the staged columns)."""
     data = mxu.prepare_mxu_cast(gpu_world6["scene"], gpu_world6["geom"],
-                                gpu_world6["cfg"])
-    o, d = gpu_world6["rays"][rays]
+                                gpu_world6["cfg"], k_cols=k_cols)
     lay = cull.CullLayout.of(o.shape[0], 1 << 19, data.tile)
     o_p, d_p = lay.pad_rays(o, d, 0.0)
-    staging = mxu.stage_mxu(o_p, d_p, data)
-    args = (staging[0], data.columns, data.n_tris) + staging[1:]
+    info, staged, ids, rd6, rp8 = mxu.stage_mxu(o_p, d_p, data)
+    lean = mxu.stage_mxu(o_p, d_p, data, columns=False)
+    assert lean[1] is None
+    for a, b in zip((info, ids, rd6, rp8), lean[:1] + lean[2:]):
+        assert torch.equal(a, b)
+    return (data,
+            (info, data.columns, data.n_tris, ids, rd6, rp8, data.tile,
+             data.max_tris),
+            (info, data.columns, data.n_tris, staged, ids, rd6, rp8,
+             data.tile))
+
+
+def _mxu_rays(gpu_world6, rays):
+    if rays in ("primary", "random"):
+        return gpu_world6["rays"][rays]
+    if rays == "sky":  # straight up from above the terrain: every list empty
+        o, d = gpu_world6["rays"]["random"]
+        o = o.clone()
+        o[:, 1] += 50.0
+        return o, torch.tensor([0.0, 1.0, 0.0], device=o.device).expand(
+            o.shape).contiguous()
+    o, d, _, _ = _cull_shadow_query(gpu_world6, "finite")
+    return o, d
+
+
+@pytest.mark.parametrize("k_cols", [mxu.K_COLS, 768])
+@pytest.mark.parametrize("rays", ["primary", "random", "sky", "shadow"])
+def test_mxu_kernel_matches_plain(gpu_world6, rays, k_cols):
+    """K6 on listed tiles (primary), all-dense input (random rays), all-sky
+    input and shadow rays (parked lanes: dense tiles among sky), with two
+    list widths: t, id, u, v identical to the plain version."""
+    o, d = _mxu_rays(gpu_world6, rays)
+    data, args_k, args_p = _mxu_staging(gpu_world6, o, d, k_cols)
+    info = args_k[0]
     before = mxu.mxu_cast.launches
-    out_k = mxu.mxu_cast(*args, data.tile)
+    out_k = mxu.mxu_cast(*args_k)
     assert mxu.mxu_cast.launches == before + 1
-    out_p = mxu.mxu_cast_reference(*args, data.tile)
+    out_p = mxu.mxu_cast_reference(*args_p)
     torch.cuda.synchronize()
     for a, b in zip(out_k, out_p):
         assert torch.equal(a, b)
-    assert bool(torch.isfinite(out_k[0]).any())
+    if rays == "random":
+        assert bool((info[:, 1] > 0).all())
+    if rays == "sky":
+        assert int(info.sum()) == 0 and not bool(
+            torch.isfinite(out_k[0]).any())
+    else:
+        assert bool(torch.isfinite(out_k[0]).any())
+
+
+def test_mxu_kernel_merges_chunks_to_the_first_minimum(gpu_world6):
+    """A table whose second half repeats its first.  Listed tiles list every
+    column twice (the copy later in the list, in other chunks), and a second
+    launch sweeps the whole table densely: ties between chunks, which must
+    fall to the first column in order whatever block finishes first."""
+    o, d = gpu_world6["rays"]["primary"]
+    data, args_k, _ = _mxu_staging(gpu_world6, o, d, 768)
+    info, columns, n_tris, ids, rd6, rp8, tile, max_tris = args_k
+    twice = torch.cat([columns[:n_tris], columns[:n_tris],
+                       columns.new_zeros(2 * (columns.shape[0] - n_tris),
+                                         mxu.COL)]).contiguous()
+    half = ids.shape[1] // 2
+    listed = (info[:, 1] == 0) & (info[:, 0] * max_tris <= half)
+    assert bool(listed.any())
+    ids2 = ids.clone()
+    ids2[listed, half:] = torch.where(ids[listed, :half] >= 0,
+                                      ids[listed, :half] + n_tris, -1.0)
+    info2 = info.clone()
+    info2[listed, 0] = ids.shape[1] // max_tris
+    dense = torch.ones_like(info) * torch.tensor(
+        [204, 1], dtype=torch.int32, device=info.device)
+    for inf, idt in ((info2, ids2), (dense, ids)):
+        out_k = mxu.mxu_cast(inf, twice, 2 * n_tris, idt, rd6, rp8, tile,
+                             max_tris)
+        out_p = mxu.mxu_cast_reference(inf, twice, 2 * n_tris,
+                                       mxu.gather_columns(twice, idt), idt,
+                                       rd6, rp8, tile)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b)
+        hit = torch.isfinite(out_k[0])
+        assert bool(hit.any()) and bool((out_k[1][hit] < n_tris).all())
+
+
+def test_mxu_kernel_block_stamps(gpu_world6):
+    o, d = gpu_world6["rays"]["primary"]
+    _, args_k, _ = _mxu_staging(gpu_world6, o, d)
+    out = mxu.mxu_cast(*args_k, stamps=True)
+    torch.cuda.synchronize()
+    times = out[4]
+    assert times.shape[0] > args_k[0].shape[0] and times.shape[1] == 2
+    assert times.dtype == torch.int64
+    assert bool((times[:, 0] > 0).all())
+    assert bool((times[:, 1] >= times[:, 0]).all())
+    for a, b in zip(out[:4], mxu.mxu_cast(*args_k)):
+        assert torch.equal(a, b)
+
+
+def test_cull_and_mxu_wrappers_reject_bad_inputs(gpu_world6):
+    o, d = gpu_world6["rays"]["random"]
+    _, args_k, _ = _mxu_staging(gpu_world6, o, d)
+    info, columns, n_tris, ids, rd6, rp8, tile, max_tris = args_k
+    with pytest.raises(TypeError):
+        mxu.mxu_cast(info, columns, n_tris, ids.double(), rd6, rp8, tile,
+                     max_tris)
+    with pytest.raises(ValueError):
+        mxu.mxu_cast(info, columns, n_tris, ids, rd6[:-1], rp8, tile,
+                     max_tris)
+    with pytest.raises(ValueError):
+        mxu.mxu_cast(info, columns.cpu(), n_tris, ids, rd6, rp8, tile,
+                     max_tris)
+    with pytest.raises(ValueError):  # rows off the 16-byte grid
+        shifted = torch.empty(rd6.numel() + 1, device=rd6.device)[1:]
+        mxu.mxu_cast(info, columns, n_tris, ids,
+                     shifted.view_as(rd6).copy_(rd6), rp8, tile, max_tris)
+    with pytest.raises(ValueError):
+        mxu.mxu_cast(info, columns, n_tris, ids, rd6, rp8, tile, 0)
+    tab = gpu_world6["tables"]["box"]
+    ctile = gpu_world6["tile"]
+    o_p, d_p, cand, info5 = _lists(gpu_world6, o, d)
+    mt = torch.ones(o_p.shape[0], device=o_p.device)
+    with pytest.raises(TypeError):
+        cull.cull_occlude(o_p, d_p, mt.double(), cand, info5, ctile, tab)
+    with pytest.raises(ValueError):
+        cull.cull_occlude(o_p, d_p, mt[:-1], cand, info5, ctile, tab)
+    with pytest.raises(ValueError):
+        cull.cull_occlude(o_p, d_p, mt.cpu(), cand, info5, ctile, tab)
+    with pytest.raises(ValueError):
+        cull.cull_occlude(o_p, d_p, mt, cand, info5, ctile + 128, tab)
+    with pytest.raises(TypeError):
+        cull.cull_occlude(o_p, d_p, mt, cand.long(), info5, ctile, tab)
 
 
 _ALL = (ce.bvh_cast, ce.bvh_occlude, ce.bvh_occlude2, cull.cull_cast,

@@ -29,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import raytracer_tpu as jrt
 from raytracer_tpu import diff as jdiff
@@ -314,6 +316,183 @@ def test_march_shadow_without_occlude_equals_occlude(world):
     scene = world["scene"]
     assert shading._use_fused(scene, cfg, cast)
     assert not shading._use_fused(scene, cfg, bare)
+
+
+# ---------------------------------------------------------------------------
+# K5's kernel design, replayed in torch: the union-box filter, groups of
+# four entries, the warp's early exit (csrc/cull_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def _slab_gate(box, o, inv, par, max_t):
+    """The slab gate of K5 against ``box`` (one ``[6]`` or per ray ``[R,
+    6]``) with the plain version's slab arithmetic: ``(passes, fails for
+    certain)``.  The second takes every comparison in its negated form, as
+    the kernel's filter does, so a NaN (0 * inf, a NaN max_t) is no certain
+    failure."""
+    tns, tfs, inside = ce._slab_terms(box, o, inv, par)
+    tmin, tmax = ce._max3(tns), ce._min3(tfs)
+    thr = ce.rm.THRESHOLD
+    return ((tmin <= tmax) & (tmax >= thr) & (tmin <= max_t) & inside,
+            (tmin > tmax) | (tmax < thr) | (tmin > max_t) | ~inside)
+
+
+def _union(boxes):
+    return torch.cat([boxes[:, :3].amin(0), boxes[:, 3:6].amax(0)])
+
+
+def _filter_rays(kind, rng, boxes, n=2048):
+    """Seeded rays that press on the filter: ``(o, d, max_t)`` f32."""
+    f = np.float32
+    lo, hi = boxes[:, :3].min(0), boxes[:, 3:6].max(0)
+    o = rng.uniform(lo - 4.0, hi + 4.0, (n, 3)).astype(f)
+    d = rng.standard_normal((n, 3)).astype(f)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    mt = rng.uniform(0.0, 12.0, n).astype(f)
+    pick = rng.integers(0, boxes.shape[0], n)
+    if kind == "parked":
+        o[::2] = f(1e30)
+    elif kind == "axis_parallel":
+        d[rng.random((n, 3)) < 0.4] = 0.0
+        d[np.all(d == 0.0, -1), 1] = 1.0
+        # origins on the boxes' own planes: containment at its edge
+        edge = rng.random((n, 3)) < 0.3
+        o = np.where(edge, boxes[pick, :3], o).astype(f)
+    elif kind == "inside":
+        w = rng.random((n, 3)).astype(f)
+        o = (boxes[pick, :3] * w + boxes[pick, 3:6] * (1 - w)).astype(f)
+    elif kind == "tiny_d":
+        # 1 / d overflows; origins on box and union planes make 0 * inf
+        d[rng.random((n, 3)) < 0.5] = f(1e-42)
+        d[rng.random((n, 3)) < 0.2] = f(-1e-42)
+        planes = np.concatenate([boxes[:, :3], boxes[:, 3:6], lo[None],
+                                 hi[None]])
+        on = rng.random((n, 3)) < 0.5
+        o = np.where(on, planes[rng.integers(0, planes.shape[0], n)],
+                     o).astype(f)
+        mt[::3] = np.inf
+    elif kind == "max_t":
+        mt[0::4] = np.inf
+        mt[1::4] = 0.0
+        mt[2::8] = np.nan
+    else:
+        assert kind == "random"
+    return o, d, mt
+
+
+@pytest.mark.parametrize("kind", ["random", "parked", "axis_parallel",
+                                  "inside", "tiny_d", "max_t"])
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2 ** 31 - 1))
+def test_union_box_filter_is_exact(kind, seed):
+    """A ray that fails the slab gate for certain on the union of a list's
+    valid boxes fails it on each of them: the lanes K5 leaves early could
+    not have been blocked."""
+    rng = np.random.default_rng(seed)
+    nb = int(rng.integers(1, 12))
+    lo = rng.uniform(-5.0, 5.0, (nb, 3))
+    boxes = np.concatenate([lo, lo + rng.uniform(0.0, 2.0, (nb, 3))],
+                           -1).astype(np.float32)
+    o, d, mt = (torch.from_numpy(x) for x in _filter_rays(kind, rng, boxes))
+    boxes = torch.from_numpy(boxes)
+    oc = [o[:, k] for k in range(3)]
+    par, inv = ce._ray_recips(d)
+    _, dead = _slab_gate(_union(boxes), oc, inv, par, mt)
+    some = torch.zeros_like(dead)
+    for b in boxes:
+        passes, _ = _slab_gate(b, oc, inv, par, mt)
+        assert not bool((passes & dead).any()), (kind, seed)
+        some |= passes
+    if kind in ("random", "parked", "max_t"):  # the filter does filter
+        assert bool(dead.any())
+    if kind == "inside":  # and rays do pass the gate
+        assert bool(some.any()) and not bool(dead.all())
+    if kind == "parked":
+        assert bool(dead[::2].all())
+
+
+def _k5_replay(o, d, mt, cand, info, tile, tables, threads=256, group=4):
+    """K5 as its kernel runs it: per block of ``threads`` rays of a tile the
+    list staged once, lanes dead on the union of its valid boxes, entries in
+    groups of ``group``, a warp passing over a group whose union box none of
+    its open lanes can enter, and leaving once all its lanes are blocked or
+    dead.  Each entry's own test is the plain version's on a one-entry
+    list.  Returns ``(mask, warps that left early, dead lanes, groups
+    passed over)``."""
+    R = o.shape[0]
+    n_inst = tables.inst_f32.shape[0]
+    blk = torch.zeros(R, dtype=torch.bool)
+    one = torch.tensor([[1, 0]], dtype=torch.int32)
+    early = n_dead = skipped = 0
+    for t in range(R // tile):
+        loop_n, over = int(info[t, 0]), bool(info[t, 1] > 0)
+        inst = [k if over else int(cand[t, min(k, cand.shape[1] - 1)])
+                for k in range(loop_n)]
+        rows = slice(t * tile, (t + 1) * tile)
+        ot, dt, mtt = o[rows], d[rows], mt[rows]
+        valid = [bool(tables.inst_i32[i, ce._II_VALID] > 0) for i in inst]
+        boxes = tables.inst_f32[[i for i, v in zip(inst, valid) if v], :6]
+        par, inv = ce._ray_recips(dt)
+        oc = [ot[:, k] for k in range(3)]
+
+        def fails(entries):
+            """Per ray: fails the gate for certain on the union of the valid
+            boxes among ``entries`` (none valid: the inverted box)."""
+            b = tables.inst_f32[[inst[k] for k in entries if valid[k]], :6]
+            u = _union(b) if b.shape[0] else torch.tensor(
+                [ce.F32_BIG] * 3 + [ce.F32_NEG_BIG] * 3)
+            return _slab_gate(u, oc, inv, par, mtt)[1]
+
+        dead = fails(range(loop_n))
+        group_fails = [fails(range(k0, min(k0 + group, loop_n)))
+                       for k0 in range(0, loop_n, group)]
+        n_dead += int(dead.sum())
+        hits = [cull.cull_occlude_reference(
+            ot, dt, mtt, torch.tensor([[i]], dtype=torch.int32),
+            one.expand(1, 2), tile, tables) for i in inst]
+        b = torch.zeros(tile, dtype=torch.bool)
+        for w0 in range(0, tile, 32):
+            lanes = slice(w0, w0 + 32)
+            for k0 in range(0, loop_n, group):
+                if bool((b[lanes] | dead[lanes]).all()):
+                    early += 1
+                    break
+                if bool((b[lanes] | dead[lanes]
+                         | group_fails[k0 // group][lanes]).all()):
+                    skipped += 1
+                    continue
+                for k in range(k0, min(k0 + group, loop_n)):
+                    b[lanes] |= hits[k][lanes] & ~dead[lanes]
+        blk[rows] = b
+    assert threads % 32 == 0 and tile % 32 == 0 and n_inst > 0
+    return blk, early, n_dead, skipped
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("rays", ["shadow", "random"])
+def test_k5_replay_in_groups_with_early_exit_equals_plain(world, tables,
+                                                          rays):
+    _, data, _, cfg = _casts(world, tables, tile_rows=8)
+    tile = 8 * cull.LANES
+    if rays == "shadow":  # parked lanes, overflowed tiles
+        o, d = _shadow(world, *_primary(world, 64, 64))
+        mt = _max_ts(o.shape[0], "inf")
+    else:
+        o, d = _random(2048, seed=9)
+        mt = _max_ts(2048, "per_ray")
+    lay = cull.CullLayout.of(o.shape[0], 1 << 19, tile)
+    o_p, d_p = lay.pad_rays(torch.from_numpy(o), torch.from_numpy(d), 1.0e30)
+    mt_p = lay.pad(torch.from_numpy(mt), 0.0)
+    cand, info = cull.tile_candidates(o_p, d_p, tile, data.tables.inst_f32,
+                                      cull.MAX_CAND)
+    want = cull.cull_occlude_reference(o_p, d_p, mt_p, cand, info, tile,
+                                       data.tables)
+    got, early, n_dead, skipped = _k5_replay(o_p, d_p, mt_p, cand, info,
+                                             tile, data.tables)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+    assert early > 0 and n_dead > 0 and skipped > 0
+    if rays == "shadow":
+        assert bool((info[:, 1] > 0).any())
 
 
 # ---------------------------------------------------------------------------

@@ -250,17 +250,174 @@ def test_mxu_wrapper_checks_inputs(world):
     lay = cull.CullLayout.of(1024, 1 << 19, data.tile)
     ro_p, rd_p = lay.pad_rays(torch.from_numpy(o), torch.from_numpy(d), 0.0)
     info, staged, ids, rd6, rp8 = mxu.stage_mxu(ro_p, rd_p, data)
-    args = (info, data.columns, data.n_tris, staged, ids, rd6, rp8)
+    args = (info, data.columns, data.n_tris, ids, rd6, rp8)
     with pytest.raises(ValueError):
-        mxu.mxu_cast(*args[:5], rd6[:-1], rp8, data.tile)
+        mxu.mxu_cast(*args[:4], rd6[:-1], rp8, data.tile, data.max_tris)
     with pytest.raises(TypeError):
-        mxu.mxu_cast(info.long(), *args[1:], data.tile)
+        mxu.mxu_cast(info.long(), *args[1:], data.tile, data.max_tris)
     with pytest.raises(ValueError):
-        mxu.mxu_cast(*args, 1024)
+        mxu.mxu_cast(*args, 1024, data.max_tris)
+    with pytest.raises(ValueError):
+        mxu.mxu_cast(*args, data.tile, 0)
+    with pytest.raises(ValueError):  # the block stamps exist on the card
+        mxu.mxu_cast(*args, data.tile, data.max_tris, stamps=True)
     before = mxu.mxu_cast.launches
-    out = mxu.mxu_cast(*args, data.tile)
+    out = mxu.mxu_cast(*args, data.tile, data.max_tris)
     assert mxu.mxu_cast.launches == before  # CPU: the plain version
     assert all(x.shape == (1024,) for x in out)
+    want = mxu.mxu_cast_reference(info, data.columns, data.n_tris, staged,
+                                  ids, rd6, rp8, data.tile)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+# ---------------------------------------------------------------------------
+# K6's kernel design, replayed in torch: live columns only, a tile's
+# positions cut into chunks, the chunks merged by a 64-bit key
+# (csrc/mxu_kernel.cu)
+# ---------------------------------------------------------------------------
+
+def _staged_rays(world, rays, data):
+    o, d = RAYS[rays](world)
+    lay = cull.CullLayout.of(o.shape[0], 1 << 19, data.tile)
+    return lay.pad_rays(torch.from_numpy(o), torch.from_numpy(d), 0.0)
+
+
+@pytest.mark.parametrize("rays", sorted(RAYS))
+def test_stage_mxu_without_columns(world, rays):
+    """The staging the kernel path takes: the same info, ids and ray rows,
+    no ``[T, K, 40]`` gather; and the live columns are the ids >= 0 within
+    a tile's first ``info[t, 0] * max_tris`` positions, nothing beyond."""
+    data = world["data"]
+    ro_p, rd_p = _staged_rays(world, rays, data)
+    info, staged, ids, rd6, rp8 = mxu.stage_mxu(ro_p, rd_p, data)
+    lean = mxu.stage_mxu(ro_p, rd_p, data, columns=False)
+    assert lean[1] is None
+    for a, b in zip((info, ids, rd6, rp8), lean[:1] + lean[2:]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    pos = torch.arange(data.k_cols)[None, :]
+    listed = pos < info[:, :1] * data.max_tris
+    live = ids >= 0
+    assert bool(live.any()) and not bool((live & ~listed).any())
+    # a box instance fills its slot: the live columns lead the list
+    n_live = live.sum(-1)
+    assert torch.equal(live, pos < n_live[:, None])
+    assert torch.equal(staged[live], data.columns[ids[live].long()])
+    assert torch.equal(staged, mxu.gather_columns(data.columns, ids))
+    # the wrapper, on CPU tensors, stages the columns itself
+    out = mxu.mxu_cast(info, data.columns, data.n_tris, ids, rd6, rp8,
+                       data.tile, data.max_tris)
+    want = mxu.mxu_cast_reference(info, data.columns, data.n_tris, staged,
+                                  ids, rd6, rp8, data.tile)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+_KEY_MISS = torch.iinfo(torch.int64).max
+SPLIT, MIN_CHUNK = 40, 64  # kMxuSplit, kMxuCols
+
+
+def _split_merge_replay(info, columns, n_tris, ids, rd6, rp8, tile, max_tris,
+                        rng):
+    """K6 as its kernel runs it: a tile's positions (the list's first
+    ``info[t, 0] * max_tris``, or the ``n_tris`` of the dense sweep) cut
+    into up to 40 chunks of at least 64; per chunk the first minimum over
+    its live columns, gathered from the table by id; the chunks merged in
+    a shuffled order by the smaller ``(bits of t) << 32 | position``; u and
+    v recomputed from the winning column.  The column arithmetic is the
+    plain version's (``mxu._score``)."""
+    T, k = ids.shape
+    a = rd6.reshape(T, tile, mxu.ROW)
+    p = rp8.reshape(T, tile, mxu.ROW)
+    out = [torch.full((T, tile), float("inf")), torch.zeros(T, tile),
+           torch.zeros(T, tile), torch.zeros(T, tile)]
+    n_chunks = []
+    for t in range(T):
+        dense = bool(info[t, 1] > 0)
+        limit = n_tris if dense else min(int(info[t, 0]) * max_tris, k)
+        per = max(MIN_CHUNK, -(-limit // SPLIT))
+        chunks = -(-limit // per)
+        n_chunks.append(chunks)
+        keys = torch.full((tile,), _KEY_MISS)
+        for y in rng.permutation(chunks):
+            pos = torch.arange(y * per, min(limit, (y + 1) * per))
+            rows = pos if dense else ids[t, pos].long()
+            pos, rows = pos[rows >= 0], rows[rows >= 0]  # live only
+            if pos.numel() == 0:
+                continue
+            tt, bpos, _, _ = mxu._score(a[t:t + 1], p[t:t + 1],
+                                        columns[rows][None],
+                                        pos[None].float())
+            key = (tt[0].view(torch.int32).long() << 32) | bpos[0].long()
+            keys = torch.minimum(keys, torch.where(torch.isfinite(tt[0]),
+                                                   key, _KEY_MISS))
+        hit = keys != _KEY_MISS
+        pos = keys & 0xffffffff
+        rows = pos if dense else ids[t, pos.clamp(max=k - 1)].long()
+        rows = torch.where(hit, rows, 0)
+        # one ray against its own winning column
+        tt, _, u, v = mxu._score(a[t][:, None], p[t][:, None],
+                                 columns[rows][:, None],
+                                 torch.zeros(tile, 1))
+        t_key = (keys >> 32).to(torch.int32).view(torch.float32)
+        assert torch.equal(tt[:, 0][hit], t_key[hit])
+        out[0][t] = torch.where(hit, t_key, float("inf"))
+        out[1][t] = torch.where(hit, rows.float(), 0.0)
+        out[2][t] = torch.where(hit, u[:, 0], 0.0)
+        out[3][t] = torch.where(hit, v[:, 0], 0.0)
+    return tuple(x.reshape(-1) for x in out), n_chunks
+
+
+@pytest.mark.parametrize("case", ["listed_twice", "dense_twice", "sky",
+                                  "shadow"])
+def test_mxu_split_and_merge_replay_equals_plain(world, case):
+    """The kernel's split of a tile over blocks and its order-free merge
+    give the plain version's first minimum: on lists that hold every column
+    twice (ties between chunks), on the dense sweep of a table that repeats
+    itself, on tiles with no live column, and on shadow rays."""
+    data = mxu.prepare_mxu_cast(world["scene"], world["geom"], world["cfg"],
+                                k_cols=768)
+    tile, max_tris, n_tris = data.tile, data.max_tris, data.n_tris
+    twice = torch.cat([data.columns[:n_tris], data.columns[:n_tris],
+                       data.columns.new_zeros(2 * (data.wp - n_tris),
+                                              mxu.COL)])
+    if case == "sky":
+        o = torch.from_numpy(_random(1024, 4)[0]) + torch.tensor(
+            [0.0, 50.0, 0.0])
+        ro_p, rd_p = o, torch.tensor([0.0, 1.0, 0.0]).expand(1024, 3)
+    else:
+        ro_p, rd_p = _staged_rays(
+            world, "shadow" if case == "shadow" else "coherent", data)
+    info, _, ids, rd6, rp8 = mxu.stage_mxu(ro_p.contiguous(),
+                                           rd_p.contiguous(), data,
+                                           columns=False)
+    info, ids = info.clone(), ids.clone()
+    if case == "listed_twice":
+        half = data.k_cols // 2
+        listed = (info[:, 1] == 0) & (info[:, 0] * max_tris <= half)
+        assert bool(listed.any())
+        ids[listed, half:] = torch.where(ids[listed, :half] >= 0,
+                                         ids[listed, :half] + n_tris, -1.0)
+        info[listed, 0] = data.k_cols // max_tris
+    elif case == "dense_twice":
+        info[:] = torch.tensor([204, 1], dtype=torch.int32)
+    elif case == "sky":
+        assert int(info.sum()) == 0
+    got, n_chunks = _split_merge_replay(info, twice, 2 * n_tris, ids, rd6,
+                                        rp8, tile, max_tris,
+                                        np.random.default_rng(5))
+    want = mxu.mxu_cast_reference(info, twice, 2 * n_tris,
+                                  mxu.gather_columns(twice, ids), ids, rd6,
+                                  rp8, tile)
+    for name, x, y in zip("t id u v".split(), got, want):
+        assert torch.equal(x, y), name
+    hit = torch.isfinite(want[0])
+    if case == "sky":
+        assert max(n_chunks) == 0 and not bool(hit.any())
+    else:
+        assert max(n_chunks) > 1 and bool(hit.any())
+        # of two equal columns the first in order won
+        assert bool((want[1][hit] < n_tris).all())
+    if case == "dense_twice":  # 4,896 triangles: 40 chunks of 123
+        assert set(n_chunks) == {SPLIT}
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,11 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from csrc/ with nvcc (sm_90a) and print the time;
-3. K1 (LBVH closest hit) against its plain PyTorch version on the card:
-   terrain8's 640x480 primary rays and 65,536 seeded incoherent rays, with
-   box tables and with template tables (build_tables(exact_uv=True));
+3. K1 (LBVH closest hit) against its plain PyTorch version on the card,
+   every output identical: terrain8's 640x480 primary rays, 65,536 seeded
+   incoherent rays and degenerate rays made from them, with box tables and
+   with template tables (build_tables(exact_uv=True)), and the 1920x1080
+   primary rays;
 4. K2 (fused two-light shadow query) against its plain version on that
    frame's shadow queries (finite and +inf max_t), both table kinds;
 5. render_frame with engine="cuda" at 640x480 and 1920x1080 with the launch
@@ -32,10 +34,11 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    torch.profiler trace of 3 fwd+bwd steps at 1080p: kernels per step,
    device busy time, idle share and the kernels that take the most time;
 9. terrain6 (204 instances: the candidate-list cull): K4 (closest hit over
-   the tile lists) against its plain version on the 640x480 primary rays and
-   the 65,536 random rays, box and template tables, and K5 (any hit) on that
-   frame's point-light and directional shadow queries, both table kinds --
-   max abs err 0 -- with the share of tiles whose lists overflow;
+   the tile lists) against its plain version on the 640x480 primary rays,
+   the 65,536 random rays and the degenerate rays, box and template tables,
+   and on the 1920x1080 primary rays, and K5 (any hit) on that frame's
+   point-light and directional shadow queries, both table kinds -- every
+   output identical -- with the share of tiles whose lists overflow;
 10. K6 (the MXU cast) against its plain version on the 640x480 primary rays,
    the random rays (every tile dense) and the point-light shadow rays
    (parked lanes: the dense sweep), and on the 1920x1080 primary and shadow
@@ -60,10 +63,11 @@ clock stamps, the share of the launch that is left when the median block of
 its working launch has ended.
 
 Each kernel's bound is the least time the card could take for its work at
-the main path's shapes: the larger of the bytes it must move (inputs read
-once, outputs written once) over 3.35 TB/s and its FP32 operations over
-67 TFLOP/s (the H100 SXM's published peaks at 700 W).  For the walks and the
-lists (K1-K5) the operations are what this run's rays reach, counted by the
+the main path's shapes (and, printed beside it, at 1920x1080): the larger
+of the bytes it must move (inputs read once, outputs written once) over
+3.35 TB/s and its FP32 operations over 67 TFLOP/s (the H100 SXM's
+published peaks at 700 W).  For the walks and the lists (K1-K5) the
+operations are what this run's rays reach, counted by the
 plain versions (``work=``: the nodes, boxes and triangles each ray's kernel
 walk tests); for K6, the live columns of each tile (its listed columns with
 a triangle, or every triangle on a dense tile) at the operations a column
@@ -116,8 +120,6 @@ SIZES = [(640, 480), (1920, 1080)]
 N_RANDOM = 65536
 REPS = 10
 PLAIN_REPS = 3  # the new phases' plain versions: oracles, not contenders
-ATOL_N = 1e-5  # normals, atol
-RTOL_T = 1e-5  # hit times, rtol
 ATOL_FRAME = 1e-5
 # cuda vs torch engine gradients: the hits are identical, so only the
 # order of the atomic sums in the gather backward differs
@@ -183,29 +185,35 @@ def _device_ms(fn, reps=10):
 
 
 def _compare_hits(label, hk, hp):
-    """K1 contract: valid, mat and tri identical; t at rtol 1e-5; normals
-    (and uv) at atol 1e-5.  Returns the largest abs difference seen."""
-    if not torch.equal(hk.valid, hp.valid):
-        n = int((hk.valid != hp.valid).sum())
-        raise AssertionError(f"{label}: valid differs on {n} rays")
-    v = hk.valid
-    for name in ("wtri", "mat"):
-        a, b = getattr(hk, name)[v], getattr(hp, name)[v]
+    """K1's and K4's contract: every output (valid, t, triangle, uv,
+    normal, material) identical to the plain version's.  Returns the
+    largest abs difference, 0."""
+    for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
+        a, b = getattr(hk, name), getattr(hp, name)
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: {name} differs on "
-                                 f"{int((a != b).sum())} rays")
-    torch.testing.assert_close(hk.t[v], hp.t[v], rtol=RTOL_T, atol=0.0,
-                               msg=lambda m: f"{label}: t: {m}")
-    torch.testing.assert_close(hk.normal[v], hp.normal[v], rtol=0.0,
-                               atol=ATOL_N,
-                               msg=lambda m: f"{label}: normal: {m}")
-    torch.testing.assert_close(hk.uv[v], hp.uv[v], rtol=0.0, atol=ATOL_N,
-                               msg=lambda m: f"{label}: uv: {m}")
-    err = 0.0
-    if bool(v.any()):
-        for a, b in ((hk.t, hp.t), (hk.normal, hp.normal), (hk.uv, hp.uv)):
-            err = max(err, float((a[v] - b[v]).abs().max()))
-    return err
+                                 f"{int((a != b).sum())} values")
+    return 0.0
+
+
+def _degenerate(o, d, boxes):
+    """Rays ``o, d`` made hard for the slab arithmetic, from seeded
+    patterns: origins inside an instance box or on its corner (a plane of
+    the box and of the tree nodes above it), exact zero direction
+    components (axis-parallel: containment decides), components so small
+    that 1 / d overflows (0 * inf where an origin lies on a plane)."""
+    idx = torch.arange(o.shape[0], device=o.device)
+    box = boxes[idx % boxes.shape[0]]
+    centre = 0.5 * (box[:, :3] + box[:, 3:6])
+    o = torch.where((idx % 5 == 0)[:, None], centre, o)
+    o = torch.where((idx % 7 == 0)[:, None], box[:, :3], o)
+    d = d.clone()
+    d[idx % 3 == 0, 0] = 0.0
+    d[idx % 4 == 0, 2] = 0.0
+    d[idx % 11 == 0, 1] = 1e-42
+    d[idx % 13 == 0, 0] = -1e-42
+    d[(d == 0.0).all(-1), 1] = -1.0
+    return o.contiguous(), d
 
 
 def _nbytes(*xs):
@@ -347,19 +355,27 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
     ro, rd, _, _ = _frame_rays_blocked(cams[main], cfgs[main])
     k_rays = {f"primary {main_key}": (ro, rd),
               f"random {N_RANDOM}": rays_random}
+    big = SIZES[-1]
+    big_key = f"{big[0]}x{big[1]}"
+    ro_b, rd_b, _, _ = _frame_rays_blocked(cams[big], cfgs[big])
+    k4_rays = dict(k_rays, degenerate=_degenerate(
+        *rays_random, data.tables.inst_f32[:, :6]))
     for tname, tab in tabs.items():
-        for rname, (o, d) in k_rays.items():
-            lay, o_p, d_p, cand, info, tile = lists(cfgs[main], o, d)
+        todo = dict(k4_rays)
+        if tname == "box":
+            todo[f"primary {big_key}"] = (ro_b, rd_b)
+        for rname, (o, d) in todo.items():
+            c = cfgs[big] if rname.endswith(big_key) else cfgs[main]
+            lay, o_p, d_p, cand, info, tile = lists(c, o, d)
             hk = cull.cull_cast(o_p, d_p, cand, info, tile, tab)
             hp = cull.cull_cast_reference(o_p, d_p, cand, info, tile, tab)
             torch.cuda.synchronize()
-            e = _compare_hits(f"K4 {tname}/{rname}", hk, hp)
-            if e != 0.0:
-                raise AssertionError(f"K4 {tname}/{rname}: max abs err {e}")
-            out["errs"]["cull_cast"] = max(out["errs"]["cull_cast"], e)
-            print(f"K4 {tname:8s} {rname:16s}: {int(hk.valid.sum())} hits "
+            out["errs"]["cull_cast"] = max(out["errs"]["cull_cast"],
+                                           _compare_hits(
+                                               f"K4 {tname}/{rname}", hk, hp))
+            print(f"K4 {tname:8s} {rname:18s}: {int(hk.valid.sum())} hits "
                   f"over {info.shape[0]} tiles ({share(info):.3f} "
-                  "overflow), identical to plain (max abs err 0)")
+                  "overflow), every output identical to plain")
         for qname, (o, d, mt) in shadow_q[main].items():
             lay, o_p, d_p, cand, info, tile = lists(cfgs[main], o, d)
             mt_p = lay.pad(mt, 0.0)
@@ -376,8 +392,6 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
             print(f"K5 {tname:8s} {qname:11s}: blocked {int(bk.sum())} of "
                   f"{bk.numel()} padded rays, identical to plain")
 
-    big = SIZES[-1]
-    big_key = f"{big[0]}x{big[1]}"
     for qname, (o, d, mt) in shadow_q[big].items():
         lay, o_p, d_p, cand, info, tile = lists(cfgs[big], o, d)
         mt_p = lay.pad(mt, 0.0)
@@ -412,7 +426,6 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
                 (info, mdata.columns, mdata.n_tris, staged, ids, rd6, rp8,
                  mdata.tile))
 
-    ro_b, rd_b, _, _ = _frame_rays_blocked(cams[big], cfgs[big])
     m_rays = dict(k_rays)
     m_rays[f"shadow {main_key}"] = shadow_q[main]["point"][:2]
     m_rays[f"primary {big_key}"] = (ro_b, rd_b)
@@ -617,38 +630,49 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
               f"({tail / max(span, 1):.3f}) of it after the median worker "
               "block ended")
 
-    # ---- bounds at the main path's shapes -----------------------------------
+    # ---- bounds at both sizes (the kernels line takes the main path's) ------
     tab_bytes = _nbytes(data.tables.inst_f32, data.tables.inst_i32,
                         data.tables.tmpl)
-    h4 = cull.cull_cast(*k4)
-    out["bounds"]["cull_cast"] = _bound(
-        _nbytes(o_p, d_p, cand, info, h4.t, h4.wtri, h4.uv, h4.normal,
-                h4.mat) + tab_bytes,
-        _work_ops(_work(cull.cull_cast_reference, *k4), closest_hit=True))
-    b5 = cull.cull_occlude(*k5)
-    out["bounds"]["cull_occlude"] = _bound(
-        _nbytes(*k5[:5], b5) + tab_bytes,
-        _work_ops(_work(cull.cull_occlude_reference, *k5),
-                  closest_hit=False))
-    # K6: a listed tile's live columns hold a triangle (id >= 0); a dense
-    # tile's are the n_tris triangles of the table, not its zero padding
-    info6, ids6 = k6[0], k6[3]
-    over6 = info6[:, 1] > 0
-    n_dense = int(over6.sum())
-    live_staged = int((ids6[~over6] >= 0.0).sum())
-    live_cols = live_staged + n_dense * mdata.n_tris
-    out["k6_columns"] = {"live_staged": live_staged,
-                         "staged": (info6.shape[0] - n_dense) * mdata.k_cols,
-                         "dense_tiles": n_dense, "n_tris": mdata.n_tris}
-    # bytes: info, the table once, ids, the ray rows; t, id, u, v out
-    out["bounds"]["mxu_cast"] = _bound(
-        _nbytes(*[x for x in k6 if isinstance(x, torch.Tensor)])
-        + 4 * 4 * info6.shape[0] * mdata.tile,
-        live_cols * mdata.tile * OPS["mxu_col"])
-    print(f"K6 {main_key} columns: {out['k6_columns']}")
-    for name, b in out["bounds"].items():
-        print(f"bound {name}: {b['bound_ms']:.5f} ms ({b['bound_by']}: "
-              f"{b['bytes']} bytes, {b['ops']} FP32 ops)")
+    for key, (a4, a5, a6) in per_size.items():
+        bounds = out["bounds"] if key == main_key else {}
+        h4 = cull.cull_cast(*a4)
+        bounds["cull_cast"] = _bound(
+            _nbytes(*a4[:4], h4.t, h4.wtri, h4.uv, h4.normal, h4.mat)
+            + tab_bytes,
+            _work_ops(_work(cull.cull_cast_reference, *a4),
+                      closest_hit=True))
+        b5 = cull.cull_occlude(*a5)
+        bounds["cull_occlude"] = _bound(
+            _nbytes(*a5[:5], b5) + tab_bytes,
+            _work_ops(_work(cull.cull_occlude_reference, *a5),
+                      closest_hit=False))
+        # K6: a listed tile's live columns hold a triangle (id >= 0); a
+        # dense tile's are the n_tris triangles of the table, not its zero
+        # padding
+        info6, ids6 = a6[0], a6[3]
+        over6 = info6[:, 1] > 0
+        n_dense = int(over6.sum())
+        live_staged = int((ids6[~over6] >= 0.0).sum())
+        live_cols = live_staged + n_dense * mdata.n_tris
+        out[f"k6_columns_{key}"] = {
+            "live_staged": live_staged,
+            "staged": (info6.shape[0] - n_dense) * mdata.k_cols,
+            "dense_tiles": n_dense, "n_tris": mdata.n_tris}
+        # bytes: info, the table once, ids, the ray rows; t, id, u, v out
+        bounds["mxu_cast"] = _bound(
+            _nbytes(*[x for x in a6 if isinstance(x, torch.Tensor)])
+            + 4 * 4 * info6.shape[0] * mdata.tile,
+            live_cols * mdata.tile * OPS["mxu_col"])
+        for name, args in (("cull_cast", a4), ("cull_occlude", a5),
+                           ("mxu_cast", a6)):
+            bounds[name]["rays"] = args[0].shape[0] if name != "mxu_cast" \
+                else args[4].shape[0]
+        out[f"bounds_{key}"] = bounds
+        print(f"K6 {key} columns: {out[f'k6_columns_{key}']}")
+        for name, b in bounds.items():
+            print(f"bound {name} {key}: {b['bound_ms']:.5f} ms "
+                  f"({b['bound_by']}: {b['bytes']} bytes, {b['ops']} FP32 "
+                  "ops)")
 
     for pname, (pcfg, _) in paths.items():
         for s in SIZES:
@@ -740,19 +764,27 @@ def main(argv=None) -> int:
 
     # ---- phase 3: K1 against its plain version ------------------------------
     errs = {"bvh_cast": 0.0, "bvh_occlude2": 0.0}
+    big = SIZES[-1]
+    big_key = f"{big[0]}x{big[1]}"
+    ro_b, rd_b, _, _ = _frame_rays_blocked(cams[big], cfgs[big])
     rays = {f"primary {main_key}": (ro, rd),
-            f"random {N_RANDOM}": (o_rand, d_rand)}
+            f"random {N_RANDOM}": (o_rand, d_rand),
+            "degenerate": _degenerate(o_rand, d_rand,
+                                      data.tables.inst_f32[:, :6])}
     primary_hit = {}
     for tname, tdata in (("box", data), ("template", data_tmpl)):
-        for rname, (o, d) in rays.items():
+        todo = dict(rays)
+        if tname == "box":
+            todo[f"primary {big_key}"] = (ro_b, rd_b)
+        for rname, (o, d) in todo.items():
             hk = ce.bvh_cast(o, d, tdata)
             hp = ce.bvh_cast_reference(o, d, tdata)
             torch.cuda.synchronize()
-            e = _compare_hits(f"K1 {tname}/{rname}", hk, hp)
-            errs["bvh_cast"] = max(errs["bvh_cast"], e)
-            print(f"K1 {tname:8s} {rname:16s}: {int(hk.valid.sum())} hits, "
-                  f"identical valid/tri/mat, max abs err {e:.3g}")
-            if rname.startswith("primary"):
+            errs["bvh_cast"] = max(errs["bvh_cast"], _compare_hits(
+                f"K1 {tname}/{rname}", hk, hp))
+            print(f"K1 {tname:8s} {rname:18s}: {int(hk.valid.sum())} hits, "
+                  "every output identical to plain")
+            if rname == f"primary {main_key}":
                 primary_hit[tname] = hk
 
     # ---- phase 4: K2 against its plain version ------------------------------
@@ -817,6 +849,7 @@ def main(argv=None) -> int:
 
     # ---- timings -----------------------------------------------------------
     timing = {}
+    walk_inputs = {}  # per size: primary rays and their shadow queries
     for s in SIZES:
         key = f"{s[0]}x{s[1]}"
         ms_cuda = _ms(lambda: render_frame(scene, cams[s], cfgs[s]))
@@ -831,6 +864,7 @@ def main(argv=None) -> int:
         sq = shadow_rays(scene, ro_s + tp[:, None] * rd_s, hk.valid)
         occ = (sq[0], sq[1], sq[2], sq[3], sq[4].contiguous(),
                torch.full_like(sq[2], float("inf")))
+        walk_inputs[key] = (ro_s, rd_s, occ)
         timing[key].update({
             "k1_ms": _ms(lambda: ce.bvh_cast(ro_s, rd_s, data)),
             "k1_plain_ms": _ms(lambda: ce.bvh_cast_reference(ro_s, rd_s,
@@ -909,8 +943,6 @@ def main(argv=None) -> int:
                                      "lights3_max_abs_diff": diff3}
 
     # ---- phase 8: the training step -----------------------------------------
-    big = SIZES[-1]
-    big_key = f"{big[0]}x{big[1]}"
     target0 = torch.zeros(big[1], big[0], 4, device=dev)
 
     def loss_and_grads(engine, params):
@@ -1002,29 +1034,34 @@ def main(argv=None) -> int:
           f"/ torch engine {step_ms_torch:.3f} ms (once)")
     report["profile"] = _profile(fwd_bwd("cuda"), smi)
 
-    # ---- bounds of K1-K3 at the main path's shapes (terrain8, 640x480) ------
+    # ---- bounds of K1-K3 (terrain8) at both sizes ---------------------------
     tab8 = _nbytes(data.tables.inst_f32, data.tables.inst_i32,
                    data.tables.tmpl, data.nodes, data.ordering)
-    work = {"bvh_cast": _work(ce.bvh_cast_reference, ro, rd, data),
-            "bvh_occlude2": _work(ce.bvh_occlude2_reference, *occ_inputs,
-                                  data),
-            "bvh_occlude": _work(ce.bvh_occlude_reference, o1, d1, dist,
-                                 data)}
-    h1 = ce.bvh_cast(ro, rd, data)
-    b2 = ce.bvh_occlude2(*occ_inputs, data)
-    b3 = ce.bvh_occlude(o1, d1, dist, data)
-    bounds = {
-        "bvh_cast": _bound(_nbytes(ro, rd, h1.t, h1.wtri, h1.uv, h1.normal,
-                                   h1.mat) + tab8,
-                           _work_ops(work["bvh_cast"], closest_hit=True)),
-        "bvh_occlude2": _bound(_nbytes(*occ_inputs, *b2) + tab8, _work_ops(
-            work["bvh_occlude2"], closest_hit=False)),
-        "bvh_occlude": _bound(_nbytes(o1, d1, dist, b3) + tab8, _work_ops(
-            work["bvh_occlude"], closest_hit=False)),
-    }
-    for name, b in bounds.items():
-        print(f"bound {name}: {b['bound_ms']:.5f} ms ({b['bound_by']}: "
-              f"{b['bytes']} bytes, {b['ops']} FP32 ops)")
+    bounds_at = {}
+    for key, (ro_s, rd_s, occ) in walk_inputs.items():
+        h1 = ce.bvh_cast(ro_s, rd_s, data)
+        b2 = ce.bvh_occlude2(*occ, data)
+        b3 = ce.bvh_occlude(*occ[:3], data)
+        bounds_at[key] = {
+            "bvh_cast": _bound(
+                _nbytes(ro_s, rd_s, h1.t, h1.wtri, h1.uv, h1.normal, h1.mat)
+                + tab8, _work_ops(_work(ce.bvh_cast_reference, ro_s, rd_s,
+                                        data), closest_hit=True)),
+            "bvh_occlude2": _bound(
+                _nbytes(*occ, *b2) + tab8,
+                _work_ops(_work(ce.bvh_occlude2_reference, *occ, data),
+                          closest_hit=False)),
+            "bvh_occlude": _bound(
+                _nbytes(*occ[:3], b3) + tab8,
+                _work_ops(_work(ce.bvh_occlude_reference, *occ[:3], data),
+                          closest_hit=False)),
+        }
+        for name, b in bounds_at[key].items():
+            b["rays"] = ro_s.shape[0]
+            print(f"bound {name} {key}: {b['bound_ms']:.5f} ms "
+                  f"({b['bound_by']}: {b['bytes']} bytes, {b['ops']} FP32 "
+                  "ops)")
+    bounds = bounds_at[main_key]
 
     # ---- phases 9-13: terrain6 on the cull and the MXU cast -----------------
     t6 = _terrain6(dev, smi, (o_rand, d_rand), frames[main], cfgs[main],
@@ -1039,8 +1076,9 @@ def main(argv=None) -> int:
         key = f"{s[0]}x{s[1]}"
         timing[key].update({f"{k}_device_ms": v for k, v in
                             t6["timing"][f"device_ms_{key}"].items()})
+    bounds_at[big_key].update(t6[f"bounds_{big_key}"])
     report["terrain6"] = t6
-    report["bounds"] = bounds
+    report["bounds"] = bounds_at
     report["timing"] = timing
     report["launches"] = launches
 
@@ -1053,6 +1091,20 @@ def main(argv=None) -> int:
         ("cull_occlude", SOURCE_CULL, tpu + "pallas_engine.py:1102", "k5"),
         ("mxu_cast", SOURCE_MXU, tpu + "pallas_mxu.py:119", "k6"),
     ]
+    # device ms = fixed + per_m * (rays in millions), fitted to the two sizes
+    for name, _, _, key in rows:
+        (t1, t2), (r1, r2) = ((timing[k][f"{key}_device_ms"] for k in timing),
+                              (bounds_at[k][name]["rays"] / 1e6
+                               for k in timing))
+        per_m = (t2 - t1) / (r2 - r1) if r2 != r1 else float("nan")
+        fit = {"fixed_ms": t1 - per_m * r1, "per_mrays_ms": per_m}
+        report.setdefault("device_fit", {})[name] = fit
+        print(f"{key.upper()} {name} [{smi}]: device " + " / ".join(
+            f"{timing[k][f'{key}_device_ms']:.4f}" for k in timing)
+            + " ms; bound " + " / ".join(
+                f"{bounds_at[k][name]['bound_ms']:.5f}" for k in timing)
+            + f" ms ({' / '.join(timing)}); fixed {fit['fixed_ms']:.4f} ms "
+            f"+ {per_m:.4f} ms per M rays")
     # no single PyTorch call computes a closest hit or an any-hit query
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -6,25 +6,44 @@
 // :983).  Their plain PyTorch versions are bvh_cast_reference /
 // bvh_occlude2_reference / bvh_occlude_reference in render/cuda_engine.py.
 //
-// What bounds them on an H100: not FLOPs.  Each ray walks the implicit-heap
-// LBVH in its own order, so the warp diverges at every descend/skip choice,
-// and each step reads a node row, an instance row and (off the box fast
-// path) template rows from scattered addresses.  A 640x480 frame of the
-// terrain8 world reads a few tens of KB of tables (380 instances x 160 B,
-// 1023 nodes x 32 B, 24 template rows x 128 B), which stay in L1/L2.
+// What bounds them on an H100: not FLOPs and not bytes.  A 640x480 frame of
+// the terrain8 world reads a few tens of KB of tables (380 instances x 160
+// B, 1023 nodes x 32 B), which stay in L1/L2.  Each ray walks the
+// implicit-heap LBVH in its own order, one thread a ray, and a warp runs as
+// long as its longest lane: a step is a chain of a node-row load, a slab
+// test (~70 instructions without FMA), the vote and the next index, each
+// waiting on the one before.  The probe (probe_kernels.py) measured walks
+// of up to 67 nodes and ~0.5 us a step where few warps are left to hide
+// it: the longest warps set most of a 640x480 launch, and at 1080p the
+// launch is bound by issue (~240 instructions a warp-step over the card).
 //
-// What this design does about it, first version: one thread per ray, a
-// stackless per-thread preorder walk (no stack memory, no shared state), the
-// tables read through const __restrict__ pointers so loads go through the
-// read-only cache, and rays ordered in 32x32 screen blocks by the caller so
-// neighbouring threads mostly take the same path.  Warp-wide votes
-// (__any_sync, the reference renderer's ballot) and tables in shared memory
-// are left for later work.
+// What K1's design does about it:
+// * both children of a node in one step: adjacent rows, two independent
+//   slab tests, so the dependent chain is one step per node entered, about
+//   half the per-thread walk's visits.  Of two inner children that both
+//   vote, the left is entered and the right's vote kept in a bit per depth
+//   (no stack memory); with nothing to enter the walk pops to the deepest
+//   kept right child (a count of leading zeros, no loop).  The kept vote
+//   was taken under a best t no smaller than the one the walk has when it
+//   gets there, so it is only ever too kind; a child entered on a kind vote
+//   has leaves that fail their own gates by containment (a node's box holds
+//   its children's, and (b - o) * inv is monotone in b for every rounding;
+//   where 0 * inf makes a node's slab NaN, the children that share the
+//   plane are NaN too and the others lie wholly on one side of the origin).
+//   Two leaves go through their own gates in preorder, the second under the
+//   best t the first left: the hits are the per-thread walk's, which are
+//   the plain version's all-leaves loop.  The leaves all sit at one depth
+//   (n_leaves a power of two, as build_lbvh pads it; the entry point checks
+//   it), so an inner node's children are both inner or both leaves.
+// * NaN-propagating min and max as one instruction each (bvh_walk.cuh),
+//   where they were a compare-compare-select: ten in every slab test.
+// K2 and K3 keep the per-thread walk, with skip_next in closed form.
 //
-// Per-thread walks give the tile walk's hits: votes are conservative (a
-// ray reaches every leaf whose box it hits, since ancestor boxes contain
-// their children exactly) and leaf updates use strict < in the same
-// preorder.  Only visit counts differ, and they are not reported.
+// Not taken (measured with probe_kernels.py, PERF.md): the top of the tree
+// in shared memory with a fixed crew of blocks (slower at 1080p), box faces
+// looked up once at the end (no gain, and spills with the pair walk), a
+// warp-vote walk (its union of the lanes' walks is up to 1.23x the longest
+// lane's in the longest warps: more steps, not fewer).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (render/kernels.py).  No fast math:
@@ -38,6 +57,26 @@ namespace rt {
 
 constexpr int kThreads = 128;
 
+// A node's vote apart from the prune: the slab interval is not empty, ends
+// at or after THRESHOLD, a parallel axis holds the origin, the node is
+// valid; the caller adds tmin < best t.
+struct NodeGate {
+  Slab s;
+  float tmin;
+  bool ok;
+};
+
+__device__ __forceinline__ NodeGate node_gate(const Tables& tb, int total,
+                                              int v, const Ray& ray) {
+  const float* node = tb.nodes + (total - v) * NODE_WIDTH;
+  NodeGate g;
+  g.s = slab_terms(node, ray);
+  g.tmin = slab_entry(g.s);
+  const float tmax = slab_exit(g.s);
+  g.ok = g.tmin <= tmax && tmax >= THRESHOLD && g.s.inside && node[6] > 0.0f;
+  return g;
+}
+
 __global__ void __launch_bounds__(kThreads)
 bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                 int n_rays, Tables tb, float* __restrict__ t_out,
@@ -47,23 +86,51 @@ bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   if (r >= n_rays) return;
   const Ray ray = load_ray(ro, rd, r);
   Best best = miss();
-
   const int total = 2 * tb.n_leaves - 1;
-  int v = 1;  // virtual heap index; flat row = total - v
-  while (v > 0) {
-    const int flat = total - v;
-    const float* node = tb.nodes + flat * NODE_WIDTH;
-    const Slab s = slab_terms(node, ray);
-    const float tmin = slab_entry(s);
-    const float tmax = slab_exit(s);
-    const bool vote = tmin <= tmax && tmax >= THRESHOLD && tmin < best.t &&
-                      s.inside && node[6] > 0.0f;
-    const bool is_leaf = v >= tb.n_leaves;
-    if (vote && is_leaf) {
-      const int i = tb.ordering[flat];
-      if (i >= 0) intersect_instance(i, s, ray, tb, best);
+
+  // a leaf's own gate under the current best, then its instance
+  auto leaf = [&](int u, const NodeGate& g) {
+    if (g.ok && g.tmin < best.t) {
+      const int i = tb.ordering[total - u];
+      if (i >= 0) intersect_instance(i, g.s, ray, tb, best);
     }
-    v = (vote && !is_leaf) ? 2 * v : skip_next(v);
+  };
+
+  int v = 0;  // the entered node (its vote passed); 0 ends the walk
+  {
+    const NodeGate g = node_gate(tb, total, 1, ray);
+    if (tb.n_leaves == 1)
+      leaf(1, g);
+    else if (g.ok && g.tmin < best.t)
+      v = 1;
+  }
+  int depth = 0;      // of v
+  unsigned pend = 0;  // bit d: a right child at depth d still to enter
+  while (v > 0) {
+    // both children of v, adjacent rows, two independent slab tests
+    const int c = 2 * v;
+    const NodeGate g0 = node_gate(tb, total, c, ray);
+    const NodeGate g1 = node_gate(tb, total, c + 1, ray);
+    if (c >= tb.n_leaves) {  // two leaves, in preorder
+      leaf(c, g0);
+      leaf(c + 1, g1);
+    } else {
+      const bool go0 = g0.ok && g0.tmin < best.t;
+      const bool go1 = g1.ok && g1.tmin < best.t;
+      if (go0 || go1) {
+        // the right child's vote is kept (too kind at worst: see above)
+        if (go0 && go1) pend |= 1u << (depth + 1);
+        v = go0 ? c : c + 1;
+        ++depth;
+        continue;
+      }
+    }
+    // on to the deepest right child still to enter, or the end
+    if (pend == 0) break;
+    const int d = 31 - __clz(pend);
+    pend &= ~(1u << d);
+    v = (v >> (depth - d)) | 1;
+    depth = d;
   }
   write_best(best, r, t_out, tri_out, uv_out, n_out, mat_out);
 }
@@ -161,6 +228,8 @@ extern "C" int rt_bvh_cast(const void* ro, const void* rd, int n_rays,
                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_leaves < 1 || (n_leaves & (n_leaves - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const rt::Tables tb{static_cast<const float*>(nodes),
                       static_cast<const int*>(ordering), n_leaves,
                       static_cast<const float*>(inst_f),

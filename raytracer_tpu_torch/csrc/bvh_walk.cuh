@@ -57,12 +57,21 @@ struct Tables {
   const float* __restrict__ tmpl;     // [T, TF_WIDTH]
 };
 
-// torch.minimum / torch.maximum semantics: a NaN operand wins.
+// torch.minimum / torch.maximum semantics: a NaN operand wins.  One
+// instruction each (min.NaN / max.NaN, sm_80 on): the result is NaN when an
+// operand is, where torch keeps that operand's NaN, and of -0 and +0 it
+// takes -0 (max: +0), where a comparison takes either.  Neither shows in
+// what the kernels compute from it: comparisons only (a NaN fails each,
+// the zeros are equal), and a hit's t is at least THRESHOLD.
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || a < b) ? a : b;
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Ray {
@@ -329,10 +338,12 @@ __device__ __forceinline__ bool occlude_instance(int i, const Slab& s,
 }
 
 // _skip_next: next preorder node after v's subtree -- climb while v is a
-// right child (odd), then step to the sibling; 0 ends the walk.
+// right child (odd), then step to the sibling; 0 ends the walk.  In closed
+// form: drop v's trailing ones; what is left is a left child, or 0 when v
+// lay on the rightmost path (the loop's climb to the root).
 __device__ __forceinline__ int skip_next(int v) {
-  while (v > 1 && (v & 1)) v >>= 1;
-  return v == 1 ? 0 : v + 1;
+  const int w = v >> (__ffs(~v) - 1);
+  return w == 0 ? 0 : w + 1;
 }
 
 }  // namespace rt

@@ -1,12 +1,29 @@
 #!/usr/bin/env python3
-"""Where K6 (the MXU cast) and K5 (the candidate-list any-hit) spend a launch.
+"""Where the hand-written kernels spend a launch: K6 (the MXU cast), K5 and
+K4 (the candidate-list any-hit and closest hit) and K1 (the LBVH closest hit).
 
     python3 raytracer_tpu_torch/probe_kernels.py [--root DIR ...]
                                                  [--frames-only] [--out F]
 
-On one GPU, on terrain6, at 640x480 and 1920x1080, for each ``--root`` (a
-checkout that holds ``raytracer_tpu_torch``; default: this one; name two to
-compare two trees in turns on one card):
+On one GPU, at 640x480 and 1920x1080, for each ``--root`` (a checkout that
+holds ``raytracer_tpu_torch``; default: this one; name several to compare
+trees in turns on one card, e.g. ``--root _checkout/parent --root . --root .
+--root _checkout/parent`` after ``git archive <commit> raytracer_tpu_torch |
+tar -x -C _checkout/parent``):
+
+* each tree's build: registers and spills of K1 and K4 (``-Xptxas -v``) and
+  the blocks an SM holds by their registers;
+* K1 on terrain8's primary rays: per 32-ray warp (in launch order) the
+  largest and the mean node visits of its lanes' per-thread walks (the plain
+  version's ``work=`` counts) and the nodes of the union of its lanes' walks
+  (what a warp-vote walk visits); then the whole launch and launches over
+  whole warps: the 1% of warps with the most visits, and the rest; K2 and
+  K3 on that frame's shadow queries;
+* K4 on terrain6's primary rays: the whole launch, then its overflowed
+  tiles (every instance walked), its listed tiles and its empty-list tiles,
+  each with the list steps it walks;
+
+and on terrain6:
 
 * K6 on the primary rays and on the point light's shadow rays: the whole
   launch, then launches on subsets of its tiles -- the dense ones (list
@@ -37,6 +54,7 @@ import importlib
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,6 +64,10 @@ import torch
 
 SIZES = [(640, 480), (1920, 1080)]
 REPS = 10
+WARP = 32
+# per size: K1's walk statistics, and K1's and K4's plain versions' hits
+# (the same for every tree)
+_WALKS = {}
 
 
 def _event_ms(fn, reps=REPS):
@@ -106,6 +128,151 @@ def _times(fn):
     return {"event_ms": _event_ms(fn), "device_ms": dev, "kernels": by_name}
 
 
+def _ptxas(log):
+    """``{kernel: {"registers": n, "spill_bytes": n}}`` from nvcc's
+    ``-Xptxas -v`` log, for the kernels whose name holds ``bvh_cast`` or
+    ``cull_cast``; each with the 128-thread blocks an SM holds by its
+    registers (65,536 an SM, given out per warp in steps of 256)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or not ("bvh_cast" in cur or "cull_cast" in cur):
+            continue
+        rec = out.setdefault(cur, {"registers": None, "spill_bytes": 0})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+            per_warp = -(-regs * 32 // 256) * 256
+            rec["registers"] = regs
+            rec["blocks_per_sm_by_registers"] = min(
+                65536 // per_warp, 64) // 4
+    return out
+
+
+def _k1_walks(ce, ro, rd, data):
+    """K1's per-thread walks on rays ``[R, 3]`` (``R`` a multiple of 32):
+    per ray the nodes it visits (the plain version's ``work=`` count), and
+    per warp of 32 rays the nodes of the union of its lanes' walks.  A node
+    is visited iff its parent was and voted, so the union counts, for each
+    internal node that some lane of the warp voted for, its two
+    children."""
+    R = ro.shape[0]
+    union = torch.ones(R // WARP, dtype=torch.int64, device=ro.device)
+
+    class Voted(dict):  # internal node -> rays that visited it and voted
+        def __setitem__(self, u, mask):
+            union.add_(2 * mask.view(-1, WARP).any(-1))
+            super().__setitem__(u, mask)
+
+    class Visits(ce._WalkVisits):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.go = Voted()
+
+    work = torch.zeros(R, 4, dtype=torch.int64, device=ro.device)
+    saved = ce._WalkVisits
+    ce._WalkVisits = Visits
+    try:
+        ce.bvh_cast_reference(ro, rd, data, work=work)
+    finally:
+        ce._WalkVisits = saved
+    return work[:, 0], union
+
+
+def _k1(rtt, mod, root, dev, key, w, h, out):
+    """K1 on terrain8's primary rays at ``w x h``: warp statistics of the
+    walks, then the whole launch and the launches over the longest 1% of
+    warps and over the rest."""
+    ce = mod("raytracer_tpu_torch.render.cuda_engine")
+    engine = mod("raytracer_tpu_torch.render.engine")
+    world = rtt.generate(os.path.join(root, "raytracer_tpu_torch", "worlds",
+                                      "terrain8.json"))
+    scene = rtt.to_device(world.scene, dev)
+    cfg = world.config.replace(engine="cuda", width=w, height=h)
+    geom = mod("raytracer_tpu_torch.render.geometry").expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, cfg)
+    cam = rtt.to_device(mod("raytracer_tpu_torch.builder").scale_camera(
+        world.camera, w, world.config.width), dev)
+    ro, rd, _, _ = engine._frame_rays_blocked(cam, cfg)
+    if key not in _WALKS:
+        visits, union = _k1_walks(ce, ro, rd, data)
+        vw = visits.view(-1, WARP)
+        vmax, vmean = vw.amax(-1), vw.float().mean(-1)
+        nw = vmax.numel()
+        top = torch.argsort(vmax, descending=True, stable=True)[
+            :max(1, nw // 100)]
+        ratio = union.float() / vmax.float()
+        stats = {
+            "warps": nw, "rays": int(ro.shape[0]),
+            "max_visits": int(vmax.max()),
+            "mean_of_warp_max": float(vmax.float().mean()),
+            "mean_visits": float(vmean.mean()),
+            "top1_warps": int(top.numel()),
+            "top1_min_of_max": int(vmax[top].min()),
+            "top1_mean_of_max": float(vmax[top].float().mean()),
+            "top1_mean_visits": float(vmean[top].mean()),
+            "top1_union_over_max": float(ratio[top].mean()),
+            "union_over_max": float(ratio.mean()),
+            "sum_warp_max": int(vmax.sum()), "sum_union": int(union.sum()),
+            "max_union": int(union.max())}
+        _WALKS[key] = (top, stats)
+        out[f"k1_walks_{key}"] = stats
+        print(f"K1 walks {key}: {json.dumps(stats)}")
+        _WALKS[key + "_plain"] = ce.bvh_cast_reference(ro, rd, data)
+    top, stats = _WALKS[key]
+    out[f"k1_differs_{key}"] = _identical(ce.bvh_cast(ro, rd, data),
+                                          _WALKS[key + "_plain"])
+    print(f"K1 {key} against its plain version: differs in "
+          f"{out[f'k1_differs_{key}']}")
+    nw = stats["warps"]
+    chosen = torch.zeros(nw, dtype=torch.bool, device=dev)
+    chosen[top] = True
+    lanes = torch.arange(WARP, device=dev)
+    for sname, mask in (("all", torch.ones_like(chosen)), ("top1", chosen),
+                        ("rest", ~chosen)):
+        rows = (torch.nonzero(mask).flatten()[:, None] * WARP
+                + lanes).flatten()
+        o, d = ro[rows].contiguous(), rd[rows].contiguous()
+        r = _times(lambda: ce.bvh_cast(o, d, data))
+        r.update(warps=int(mask.sum()))
+        out[f"k1_{sname}_{key}"] = r
+        print(f"K1 {key} {sname:4s}: {int(mask.sum()):6d} warps: "
+              f"{r['event_ms']:.4f} ms (device {r['device_ms']:.4f})")
+    # K2 and K3 on the frame's shadow queries: whole launches
+    hit = _WALKS[key + "_plain"]
+    t = torch.where(hit.valid, hit.t, 1.0)
+    o1, d1, dist, o2, d2 = mod("raytracer_tpu_torch.render.shading"
+                               ).shadow_rays(scene, ro + t[:, None] * rd,
+                                             hit.valid)
+    occ = (o1, d1, dist, o2, d2.contiguous(),
+           torch.full_like(dist, float("inf")))
+    for name, fn in (("k2", lambda: ce.bvh_occlude2(*occ, data)),
+                     ("k3", lambda: ce.bvh_occlude(*occ[:3], data))):
+        r = _times(fn)
+        out[f"{name}_{key}"] = r
+        print(f"{name.upper()} {key}: {r['event_ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f})")
+
+
+def _identical(hk, hp):
+    """The outputs in which a kernel's hits differ from its plain
+    version's, with the number of values (empty: identical)."""
+    out = {}
+    for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
+        a, b = getattr(hk, name), getattr(hp, name)
+        if not torch.equal(a, b):
+            out[name] = int((a != b).sum())
+    return out
+
+
 def _load(root):
     """Import ``raytracer_tpu_torch`` from ``root`` (dropping any copy
     imported from another root)."""
@@ -119,7 +286,7 @@ def _load(root):
         sys.path.remove(root)
 
 
-def probe(root, dev, smi, frames_only=False):
+def probe(root, dev, smi, frames_only=False, logs=None):
     rtt = _load(root)
     mod = importlib.import_module
     ce = mod("raytracer_tpu_torch.render.cuda_engine")
@@ -129,7 +296,12 @@ def probe(root, dev, smi, frames_only=False):
     scale_camera = mod("raytracer_tpu_torch.builder").scale_camera
     expand_geometry = mod("raytracer_tpu_torch.render.geometry").expand_geometry
     shadow_rays = mod("raytracer_tpu_torch.render.shading").shadow_rays
-    mod("raytracer_tpu_torch.render.kernels").library()
+    kernels = mod("raytracer_tpu_torch.render.kernels")
+    _, log = kernels.build()
+    kernels.library()
+    logs = {} if logs is None else logs
+    if log:  # a tree's log is read where it is first built
+        logs[root] = _ptxas(log)
 
     world = rtt.generate(os.path.join(root, "raytracer_tpu_torch", "worlds",
                                       "terrain6.json"))
@@ -143,6 +315,12 @@ def probe(root, dev, smi, frames_only=False):
     out = {"root": root, "gpu": smi, "k6_takes_staged": takes_staged}
     print(f"== {root} [{smi}]: mxu_cast "
           f"{'reads staged columns' if takes_staged else 'gathers columns'}")
+    out["ptxas"] = logs.get(root)
+    for name, rec in (logs.get(root) or {}).items():
+        print(f"ptxas {name}: {rec}")
+    if not frames_only:
+        for w, h in SIZES:
+            _k1(rtt, mod, root, dev, f"{w}x{h}", w, h, out)
 
     for w, h in SIZES:
         key = f"{w}x{h}"
@@ -168,6 +346,39 @@ def probe(root, dev, smi, frames_only=False):
         valid = lay.unpad(hit.valid)
         t = torch.where(valid, lay.unpad(hit.t), 1.0)
         so, sd, dist, _, _ = shadow_rays(scene, ro + t[:, None] * rd, valid)
+
+        # ---- K4 -----------------------------------------------------------
+        if f"k4_plain_{key}" not in _WALKS:
+            _WALKS[f"k4_plain_{key}"] = cull.cull_cast_reference(
+                o_p, d_p, cand, info, tile, data.tables)
+        diffs = _identical(hit, _WALKS[f"k4_plain_{key}"])
+        out[f"k4_differs_{key}"] = diffs
+        print(f"K4 {key} against its plain version: differs in {diffs}")
+        T4 = info.shape[0]
+        over4 = info[:, 1] > 0
+        empty4 = ~over4 & (info[:, 0] == 0)
+        subsets = {"all": torch.ones_like(over4), "overflow": over4,
+                   "listed": ~over4 & ~empty4, "empty": empty4}
+        for sname, mask in subsets.items():
+            sel = torch.nonzero(mask).flatten()
+            n = int(sel.numel())
+            if n == 0:
+                continue
+
+            def rows4(x):
+                return x.reshape((T4, tile) + x.shape[1:])[sel].reshape(
+                    (-1,) + x.shape[1:]).contiguous()
+
+            args4 = (rows4(o_p), rows4(d_p), cand[sel].contiguous(),
+                     info[sel].contiguous(), tile, data.tables)
+            r = _times(lambda: cull.cull_cast(*args4))
+            steps = int(info[sel, 0].sum())
+            r.update(tiles=n, list_steps=steps,
+                     max_steps=int(info[sel, 0].max()))
+            out[f"k4_{sname}_{key}"] = r
+            print(f"K4 {key} {sname:8s}: {n:4d} tiles of {tile}, {steps:6d} "
+                  f"list steps (max {r['max_steps']}): {r['event_ms']:.4f} ms "
+                  f"(device {r['device_ms']:.4f})")
 
         # ---- K6 -----------------------------------------------------------
         mtile = mdata.tile
@@ -274,7 +485,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip()
-    results = [probe(os.path.abspath(r), dev, smi, args.frames_only)
+    logs = {}
+    results = [probe(os.path.abspath(r), dev, smi, args.frames_only, logs)
                for r in (args.root or [here])]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

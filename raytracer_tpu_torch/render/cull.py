@@ -26,11 +26,12 @@ for nearly every instance and overflows: that is the JAX package's behaviour,
 kept.
 
 The CUDA kernels (``csrc/cull_kernels.cu``) run one ray per thread over its
-tile's list (K5 from a copy of the list in shared memory, four entries at a
-time, leaving early what no listed box can block); the plain versions take
-the same instances in the same order for each ray (slot ``k`` of the ray's
-tile, or ``k`` itself on overflow) with the table rows gathered per ray, and
-give the same bits.
+tile's list, from a copy of the list in shared memory, four entries at a
+time, passing over what no lane of a warp can use (K5: leaving once no lane
+can be blocked; K4: once no lane can find a closer hit in the rest of the
+list); the plain versions take the same instances in the same order for
+each ray (slot ``k`` of the ray's tile, or ``k`` itself on overflow) with
+the table rows gathered per ray, and give the same bits.
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ from .cast_vjp import cast_detached, occlude2_detached, occlude_detached
 
 LANES = 128  # the JAX package's lane width: a tile is tile_rows * LANES rays
 MAX_CAND = 64  # make_pallas_cast's default list length
-# K5 stages a tile's list in shared memory: box, flags and instance of an
-# entry, and its share of the box of its group of four
-_K5_ENTRY_BYTES = 32 + 8
+# K4 and K5 stage a tile's list in shared memory: box, flags and instance of
+# an entry, and its share of the box of its group of four (K4: also of the
+# two boxes of its span of sixteen)
+_ENTRY_BYTES = {"cull_cast": 32 + 8 + 4, "cull_occlude": 32 + 8}
 _SHARED_BYTES = 232448  # dynamic shared memory a block can have (H100)
 
 
@@ -203,6 +205,71 @@ class _Lists:
         return torch.where(self.over, k, slot.long()), k < self.loop
 
 
+class _Best:
+    """The closest-hit state of rays ``[R]`` (``_init_best``): a miss is t
+    = +inf, tri 0, uv 0, normal (0, 0, 1), mat 0."""
+
+    def __init__(self, R: int, dev):
+        f32 = torch.float32
+        self.t = torch.full((R,), float("inf"), dtype=f32, device=dev)
+        self.tri = torch.zeros(R, dtype=torch.int32, device=dev)
+        self.u = torch.zeros(R, dtype=f32, device=dev)
+        self.v = torch.zeros(R, dtype=f32, device=dev)
+        self.n = [torch.zeros(R, dtype=f32, device=dev),
+                  torch.zeros(R, dtype=f32, device=dev),
+                  torch.ones(R, dtype=f32, device=dev)]
+        self.mat = torch.zeros(R, dtype=torch.int32, device=dev)
+
+    def take(self, ok, t, tri, u, v, n, mat):
+        self.t = torch.where(ok, t, self.t)
+        self.tri = torch.where(ok, tri, self.tri)
+        self.u = torch.where(ok, u, self.u)
+        self.v = torch.where(ok, v, self.v)
+        self.n = [torch.where(ok, n[c], self.n[c]) for c in range(3)]
+        self.mat = torch.where(ok, mat, self.mat)
+
+    def hit(self) -> Hit:
+        """``_write_best``: the normal re-normalized once, at the end."""
+        bn = self.n
+        nlen = torch.sqrt(bn[0] * bn[0] + bn[1] * bn[1] + bn[2] * bn[2])
+        ninv = 1.0 / torch.clamp(nlen, min=rm.THRESHOLD)
+        return Hit(valid=torch.isfinite(self.t), t=self.t, wtri=self.tri,
+                   uv=torch.stack([self.u, self.v], dim=-1),
+                   normal=torch.stack([bn[c] * ninv for c in range(3)],
+                                      dim=-1),
+                   mat=self.mat)
+
+
+def _closest_update(best: _Best, f, ii, gate, tns, tfs, inside, o, d,
+                    tmpl, max_tris: int, any_tmpl: bool) -> None:
+    """``_intersect_instance`` for rays ``[R]`` each against its own
+    instance (table rows ``f [R, 40]``, ``ii [R, 24]``) where ``gate``
+    (its box test, the prune included) passed; ``tns, tfs, inside``: the
+    slab terms of the box that gate read."""
+    is_box = ii[:, ce._II_IS_BOX] > 0
+    ok, t_hit, wtri, nrm = ce._box_face_hit(tns, tfs, inside, d, f, ii)
+    ok = gate & is_box & ok & (t_hit < best.t)
+    third = torch.full_like(best.u, 1.0 / 3.0)
+    best.take(ok, t_hit, wtri, third, third, [nrm[:, c] for c in range(3)],
+              ii[:, ce._II_MAT])
+    if not any_tmpl:
+        return
+    q, lo, ld = ce._to_local(f, o, d)
+    qc = (-q[0], -q[1], -q[2], q[3])
+    start = ii[:, ce._II_TMPL_START]
+    count = ii[:, ce._II_TRI_COUNT]
+    wstart = ii[:, ce._II_WTRI_START]
+    tgate = gate & ~is_box
+    for j in range(max_tris):
+        row = tmpl[torch.clamp(start + j, max=tmpl.shape[0] - 1).long()]
+        tok, tt, b0, b1, b2 = ce._template_tri(row, lo, ld)
+        tok = tgate & (j < count) & tok & (tt < best.t)
+        sn = [b0 * row[:, ce._TF_NA + c] + b1 * row[:, ce._TF_NB + c]
+              + b2 * row[:, ce._TF_NC + c] for c in range(3)]
+        best.take(tok, tt, wstart + j, b1, b2, ce._quat_rotate_tile(qc, sn),
+                  row[:, ce._TF_MAT].to(torch.int32))
+
+
 def cull_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
                         cand: torch.Tensor, info: torch.Tensor, tile: int,
                         tables: ce.SceneTables, *,
@@ -211,24 +278,14 @@ def cull_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
     over each ray's tile list, visited in the kernel's order.  ``work``:
     see ``cuda_engine.WORK_COLUMNS``."""
     R = ro.shape[0]
-    dev = ro.device
-    f32 = torch.float32
     o = [ro[:, k] for k in range(3)]
     d = [rd[:, k] for k in range(3)]
     par, inv = ce._ray_recips(rd)
-    inst_f, inst_i, tmpl = tables.inst_f32, tables.inst_i32, tables.tmpl
+    inst_f, inst_i = tables.inst_f32, tables.inst_i32
     lists = _Lists(cand, info, tile, R)
     max_tris = int(inst_i[:, ce._II_TRI_COUNT].max())
     any_tmpl = bool((inst_i[:, ce._II_IS_BOX] == 0).any())
-
-    bt = torch.full((R,), float("inf"), dtype=f32, device=dev)
-    btri = torch.zeros(R, dtype=torch.int32, device=dev)
-    bu = torch.zeros(R, dtype=f32, device=dev)
-    bv = torch.zeros(R, dtype=f32, device=dev)
-    bn = [torch.zeros(R, dtype=f32, device=dev),
-          torch.zeros(R, dtype=f32, device=dev),
-          torch.ones(R, dtype=f32, device=dev)]
-    bmat = torch.zeros(R, dtype=torch.int32, device=dev)
+    best = _Best(R, ro.device)
 
     for k in range(lists.steps):
         i, live = lists.at(k)
@@ -238,49 +295,16 @@ def cull_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
         tmin = ce._max3(tns)
         tmax = ce._min3(tfs)
         gate = (live & (ii[:, ce._II_VALID] > 0) & (tmin <= tmax)
-                & (tmax >= rm.THRESHOLD) & (tmin < bt) & inside)
-        is_box = ii[:, ce._II_IS_BOX] > 0
+                & (tmax >= rm.THRESHOLD) & (tmin < best.t) & inside)
         if work is not None:
+            is_box = ii[:, ce._II_IS_BOX] > 0
             work[:, 0] += live
             work[:, 1] += gate & is_box
             work[:, 2] += gate & ~is_box
             work[:, 3] += (gate & ~is_box) * ii[:, ce._II_TRI_COUNT]
-        ok, t_hit, wtri, nrm = ce._box_face_hit(tns, tfs, inside, d, f, ii)
-        ok = gate & is_box & ok & (t_hit < bt)
-        bt = torch.where(ok, t_hit, bt)
-        btri = torch.where(ok, wtri, btri)
-        bu = torch.where(ok, 1.0 / 3.0, bu)
-        bv = torch.where(ok, 1.0 / 3.0, bv)
-        bn = [torch.where(ok, nrm[:, c], bn[c]) for c in range(3)]
-        bmat = torch.where(ok, ii[:, ce._II_MAT], bmat)
-        if not any_tmpl:
-            continue
-        q, lo, ld = ce._to_local(f, o, d)
-        qc = (-q[0], -q[1], -q[2], q[3])
-        start = ii[:, ce._II_TMPL_START]
-        count = ii[:, ce._II_TRI_COUNT]
-        wstart = ii[:, ce._II_WTRI_START]
-        tgate = gate & ~is_box
-        for j in range(max_tris):
-            row = tmpl[torch.clamp(start + j, max=tmpl.shape[0] - 1).long()]
-            tok, tt, b0, b1, b2 = ce._template_tri(row, lo, ld)
-            tok = tgate & (j < count) & tok & (tt < bt)
-            sn = [b0 * row[:, ce._TF_NA + c] + b1 * row[:, ce._TF_NB + c]
-                  + b2 * row[:, ce._TF_NC + c] for c in range(3)]
-            wn = ce._quat_rotate_tile(qc, sn)
-            bt = torch.where(tok, tt, bt)
-            btri = torch.where(tok, wstart + j, btri)
-            bu = torch.where(tok, b1, bu)
-            bv = torch.where(tok, b2, bv)
-            bn = [torch.where(tok, wn[c], bn[c]) for c in range(3)]
-            bmat = torch.where(tok, row[:, ce._TF_MAT].to(torch.int32), bmat)
-
-    nlen = torch.sqrt(bn[0] * bn[0] + bn[1] * bn[1] + bn[2] * bn[2])
-    ninv = 1.0 / torch.clamp(nlen, min=rm.THRESHOLD)
-    return Hit(valid=torch.isfinite(bt), t=bt, wtri=btri,
-               uv=torch.stack([bu, bv], dim=-1),
-               normal=torch.stack([bn[c] * ninv for c in range(3)], dim=-1),
-               mat=bmat)
+        _closest_update(best, f, ii, gate, tns, tfs, inside, o, d,
+                        tables.tmpl, max_tris, any_tmpl)
+    return best.hit()
 
 
 def cull_occlude_reference(ro, rd, max_t, cand, info, tile: int,
@@ -349,6 +373,21 @@ def _check_lists(ro, cand, info, tile: int):
         raise ValueError("cand: needs at least one column")
 
 
+def _check_staging(name: str, cand, tables: ce.SceneTables) -> int:
+    """What K4/K5 need to stage a tile's list in shared memory; returns the
+    instance count."""
+    n_inst = tables.inst_f32.shape[0]
+    entries = max(cand.shape[1], n_inst)
+    per = _ENTRY_BYTES[name]
+    if (entries + 3) * per > _SHARED_BYTES:
+        raise ValueError(f"{name} stages a tile's list in shared memory: "
+                         f"{entries} entries of {per} bytes exceed a "
+                         f"block's {_SHARED_BYTES}")
+    if tables.inst_f32.data_ptr() % 16:
+        raise ValueError(f"inst_f32: {name} reads 16-byte aligned rows")
+    return n_inst
+
+
 def cull_cast(ro: torch.Tensor, rd: torch.Tensor, cand: torch.Tensor,
               info: torch.Tensor, tile: int, tables: ce.SceneTables) -> Hit:
     """K4 (``_cast_kernel``): closest hit of padded rays ``[T * tile, 3]``
@@ -361,6 +400,7 @@ def cull_cast(ro: torch.Tensor, rd: torch.Tensor, cand: torch.Tensor,
     if ce._device_kind(ro) == "cpu":
         return cull_cast_reference(ro, rd, cand, info, tile, tables)
     ce._check_tables(tables, dev)
+    n_inst = _check_staging("cull_cast", cand, tables)
     from . import kernels
 
     t = torch.empty(R, dtype=torch.float32, device=dev)
@@ -372,9 +412,9 @@ def cull_cast(ro: torch.Tensor, rd: torch.Tensor, cand: torch.Tensor,
         err = kernels.library().rt_cull_cast(
             ce._ptr(ro), ce._ptr(rd), R, ce._ptr(cand), ce._ptr(info),
             cand.shape[1], tile, ce._ptr(tables.inst_f32),
-            ce._ptr(tables.inst_i32), ce._ptr(tables.tmpl), ce._ptr(t),
-            ce._ptr(wtri), ce._ptr(uv), ce._ptr(normal), ce._ptr(mat),
-            dev.index, kernels.stream_handle(dev))
+            ce._ptr(tables.inst_i32), n_inst, ce._ptr(tables.tmpl),
+            ce._ptr(t), ce._ptr(wtri), ce._ptr(uv), ce._ptr(normal),
+            ce._ptr(mat), dev.index, kernels.stream_handle(dev))
         ce._raise_on(err, "cull_cast")
         cull_cast.launches += 1
     return Hit(valid=torch.isfinite(t), t=t, wtri=wtri, uv=uv,
@@ -399,14 +439,7 @@ def cull_occlude(ro, rd, max_t, cand, info, tile: int,
         return cull_occlude_reference(ro, rd, max_t, cand, info, tile,
                                       tables)
     ce._check_tables(tables, dev)
-    n_inst = tables.inst_f32.shape[0]
-    entries = max(cand.shape[1], n_inst)
-    if (entries + 3) * _K5_ENTRY_BYTES > _SHARED_BYTES:
-        raise ValueError(f"K5 stages a tile's list in shared memory: "
-                         f"{entries} entries of {_K5_ENTRY_BYTES} bytes "
-                         f"exceed a block's {_SHARED_BYTES}")
-    if tables.inst_f32.data_ptr() % 16:
-        raise ValueError("inst_f32: K5 reads 16-byte aligned rows")
+    n_inst = _check_staging("cull_occlude", cand, tables)
     from . import kernels
 
     blk = torch.empty(R, dtype=torch.bool, device=dev)

@@ -91,7 +91,7 @@ def library() -> ctypes.CDLL:
         "rt_bvh_occlude": [vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
                            vp, ci, vp],
         # K4, K5 (cull_kernels.cu)
-        "rt_cull_cast": [vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
+        "rt_cull_cast": [vp, vp, ci, vp, vp, ci, ci, vp, vp, ci, vp,
                          vp, vp, vp, vp, vp, ci, vp],
         "rt_cull_occlude": [vp, vp, vp, ci, vp, vp, ci, ci, vp, vp, ci,
                             vp, vp, ci, vp],

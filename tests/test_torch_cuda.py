@@ -6,8 +6,10 @@ import.  Run on a GPU machine with::
 
     python -m pytest tests/test_torch_cuda.py -q -m gpu
 
-K1 and K4 must give the plain version's valid, triangle and material
-exactly, t at rtol 1e-5 and normals/uv at atol 1e-5; K2's, K3's and K5's
+K1 and K4 must give the plain version's hits exactly (valid, t, triangle,
+uv, normal, material; also at 1080p, on K4's overflowed, empty-list and
+degenerate tiles, on terrain8 forced onto the cull and for ray counts off
+the 32- and 128-ray grid); K2's, K3's and K5's
 masks must be identical (K3's also to K2's; K5's also on overflowed tiles,
 parked lanes and degenerate rays); K6's t, id, u and v must equal its plain
 version's (listed, dense and sky tiles, ties between a tile's chunks); a frame through the kernels must equal the ``"torch"``
@@ -73,14 +75,58 @@ def test_bvh_cast_kernel_matches_plain(gpu_world, tables, rays):
     assert ce.bvh_cast.launches == before + 1
     hp = ce.bvh_cast_reference(o, d, data)
     torch.cuda.synchronize()
-    assert torch.equal(hk.valid, hp.valid)
-    v = hk.valid
-    assert int(v.sum()) > 0
-    assert torch.equal(hk.wtri[v], hp.wtri[v])
-    assert torch.equal(hk.mat[v], hp.mat[v])
-    torch.testing.assert_close(hk.t[v], hp.t[v], rtol=1e-5, atol=0.0)
-    torch.testing.assert_close(hk.normal, hp.normal, rtol=0.0, atol=1e-5)
-    torch.testing.assert_close(hk.uv, hp.uv, rtol=0.0, atol=1e-5)
+    _assert_same_hits(hk, hp)
+    assert int(hk.valid.sum()) > 0
+
+
+def _assert_same_hits(hk, hp):
+    for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
+        assert torch.equal(getattr(hk, name), getattr(hp, name)), name
+
+
+def _degenerate(o, d, boxes):
+    """Origins inside a box or on its corner, axis-parallel directions,
+    components so small that 1 / d overflows."""
+    idx = torch.arange(o.shape[0], device=o.device)
+    box = boxes[idx % boxes.shape[0]]
+    o = torch.where((idx % 5 == 0)[:, None],
+                    0.5 * (box[:, :3] + box[:, 3:6]), o)
+    o = torch.where((idx % 7 == 0)[:, None], box[:, :3], o)
+    d = d.clone()
+    d[idx % 3 == 0, 0] = 0.0
+    d[idx % 4 == 0, 2] = 0.0
+    d[idx % 11 == 0, 1] = 1e-42
+    d[idx % 13 == 0, 0] = -1e-42
+    d[(d == 0.0).all(-1), 1] = -1.0
+    return o.contiguous(), d
+
+
+@pytest.mark.parametrize("case", ["1080p", "degenerate", "ragged"])
+def test_bvh_cast_kernel_hard_inputs(gpu_world, case):
+    """K1 on a 1920x1080 frame's rays, on degenerate rays (both table
+    kinds), and on ray counts off the 32- and 128-ray grid."""
+    data = gpu_world["data"]["box"]
+    o, d = gpu_world["rays"]["random"]
+    if case == "1080p":
+        cfg = gpu_world["cfg"].replace(width=1920, height=1080)
+        w = rtt.generate(WORLD)
+        cam = rtt.to_device(scale_camera(w.camera, 1920, w.config.width),
+                            o.device)
+        o, d, _, _ = _frame_rays_blocked(cam, cfg)
+        assert o.shape[0] == 1920 * 1088
+    todo = [(o, d, data)]
+    if case == "degenerate":
+        o, d = _degenerate(o, d, data.tables.inst_f32[:, :6])
+        todo = [(o, d, data), (o, d, gpu_world["data"]["template"])]
+    elif case == "ragged":
+        todo = [(o[:n].contiguous(), d[:n].contiguous(), data)
+                for n in (1, 31, 33, 127, 129, 4000)]
+    for o_, d_, data_ in todo:
+        hk = ce.bvh_cast(o_, d_, data_)
+        hp = ce.bvh_cast_reference(o_, d_, data_)
+        torch.cuda.synchronize()
+        _assert_same_hits(hk, hp)
+    assert int(hk.valid.sum()) > 0
 
 
 def _shadow_queries(gpu_world):
@@ -170,6 +216,11 @@ def test_wrappers_reject_bad_inputs(gpu_world):
         ce.bvh_cast(o.t().contiguous().t(), d, data)
     with pytest.raises(ValueError):
         ce.bvh_cast(o.cpu(), d, data)
+    # K1's pair walk needs every leaf at one depth: a power of two of them
+    three = ce.CastData(data.tables, data.nodes[-5:].contiguous(),
+                        data.ordering[:3].contiguous())
+    with pytest.raises(RuntimeError):
+        ce.bvh_cast(o, d, three)
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +275,76 @@ def test_cull_cast_kernel_matches_plain(gpu_world6, tables, rays):
     assert cull.cull_cast.launches == before + 1
     hp = cull.cull_cast_reference(o_p, d_p, cand, info, tile, tab)
     torch.cuda.synchronize()
-    assert torch.equal(hk.valid, hp.valid) and int(hk.valid.sum()) > 0
-    v = hk.valid
-    assert torch.equal(hk.wtri[v], hp.wtri[v])
-    assert torch.equal(hk.mat[v], hp.mat[v])
-    for a, b in ((hk.t, hp.t), (hk.normal, hp.normal), (hk.uv, hp.uv)):
-        assert torch.equal(a, b)
+    _assert_same_hits(hk, hp)
+    assert int(hk.valid.sum()) > 0
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("case", ["overflow", "empty", "degenerate",
+                                  "1080p"])
+def test_cull_cast_kernel_hard_tiles(gpu_world6, tables, case):
+    """K4 on the tiles where its staging and its exits are at stake: tiles
+    whose lists overflow (every instance staged, table order), tiles with
+    an empty list (misses, no ray read), degenerate rays, and the lists of
+    a 1920x1080 frame (8,192-ray tiles)."""
+    tab = gpu_world6["tables"][tables]
+    tile = gpu_world6["tile"]
+    o, d = gpu_world6["rays"]["primary"]
+    if case == "overflow":  # incoherent rays: every tile's list overflows
+        o, d = gpu_world6["rays"]["random"]
+    elif case == "empty":  # whole tiles of sky rays: no pad row widens them
+        o, d = (x.repeat(3, 1)[:2 * tile].contiguous()
+                for x in _mxu_rays(gpu_world6, "sky"))
+    elif case == "degenerate":
+        o, d = _degenerate(*gpu_world6["rays"]["random"],
+                           tab.inst_f32[:, :6])
+    elif case == "1080p":
+        cfg = gpu_world6["cfg"].replace(width=1920, height=1080)
+        w = rtt.generate(WORLD6)
+        cam = rtt.to_device(scale_camera(w.camera, 1920, w.config.width),
+                            o.device)
+        o, d, _, _ = _frame_rays_blocked(cam, cfg)
+        tile = cull.tile_rows_of(cfg) * cull.LANES
+    lay = cull.CullLayout.of(o.shape[0], gpu_world6["cfg"].pallas_ray_chunk,
+                             tile)
+    o, d = lay.pad_rays(o, d, 1.0e30)
+    cand, info = cull.tile_candidates(o, d, tile, tab.inst_f32,
+                                      cull.MAX_CAND)
+    if case == "overflow":
+        assert bool((info[:, 1] > 0).all())
+    if case == "empty":
+        assert int(info[:, 0].max()) == 0
+    hk = cull.cull_cast(o, d, cand, info, tile, tab)
+    hp = cull.cull_cast_reference(o, d, cand, info, tile, tab)
+    torch.cuda.synchronize()
+    _assert_same_hits(hk, hp)
+    if case == "empty":
+        assert not bool(hk.valid.any())
+    else:
+        assert int(hk.valid.sum()) > 0
+
+
+def test_cull_cast_kernel_stages_terrain8(gpu_world):
+    """terrain8 (380 instances) forced onto the cull: an overflowed tile
+    stages all 380 entries; identical to the plain version, and the frame
+    equal to the walk's."""
+    s, cam, cfg = gpu_world["scene"], gpu_world["cam"], gpu_world["cfg"]
+    tab = gpu_world["data"]["box"].tables
+    assert tab.inst_f32.shape[0] == 380
+    o, d = gpu_world["rays"]["random"]
+    tile = cull.tile_rows_of(cfg) * cull.LANES
+    lay = cull.CullLayout.of(o.shape[0], cfg.pallas_ray_chunk, tile)
+    o, d = lay.pad_rays(o, d, 1.0e30)
+    cand, info = cull.tile_candidates(o, d, tile, tab.inst_f32,
+                                      cull.MAX_CAND)
+    assert int(info[:, 0].max()) == 380
+    hk = cull.cull_cast(o, d, cand, info, tile, tab)
+    hp = cull.cull_cast_reference(o, d, cand, info, tile, tab)
+    torch.cuda.synchronize()
+    _assert_same_hits(hk, hp)
+    img = render_frame(s, cam, cfg.replace(pallas_traversal="cull"))
+    torch.testing.assert_close(img, render_frame(s, cam, cfg), rtol=0.0,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("tables", ["box", "template"])

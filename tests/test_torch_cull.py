@@ -19,7 +19,11 @@ both packages), on the CPU, with the same numpy-made rays handed to both:
   ``tile_rows=8`` so that there are several tiles and an overflow), the cull
   frame equal to the port's own LBVH frame, and loss gradients against
   ``jax.grad`` leaf by leaf at rtol 1e-5 / atol 1e-6;
-* the CLI's ``-d`` mapping and a CLI render through the cull.
+* the CLI's ``-d`` mapping and a CLI render through the cull;
+* the CUDA kernels' designs replayed in torch against the plain versions:
+  K5's union-box filter and grouped walk with early exits, K4's prune on
+  union boxes (a hypothesis property test, NaN and inf best t included)
+  and its walk over groups and spans with the suffix exit.
 """
 
 import os
@@ -341,13 +345,19 @@ def _union(boxes):
 
 
 def _filter_rays(kind, rng, boxes, n=2048):
-    """Seeded rays that press on the filter: ``(o, d, max_t)`` f32."""
+    """Seeded rays that press on the filter: ``(o, d, max_t, best_t)`` f32;
+    ``best_t``, a closest-hit lane's best t so far, takes inf (no hit yet),
+    0 and NaN too."""
     f = np.float32
     lo, hi = boxes[:, :3].min(0), boxes[:, 3:6].max(0)
     o = rng.uniform(lo - 4.0, hi + 4.0, (n, 3)).astype(f)
     d = rng.standard_normal((n, 3)).astype(f)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     mt = rng.uniform(0.0, 12.0, n).astype(f)
+    bt = rng.uniform(0.0, 12.0, n).astype(f)
+    bt[0::4] = np.inf
+    bt[1::8] = np.nan
+    bt[2::16] = 0.0
     pick = rng.integers(0, boxes.shape[0], n)
     if kind == "parked":
         o[::2] = f(1e30)
@@ -376,7 +386,7 @@ def _filter_rays(kind, rng, boxes, n=2048):
         mt[2::8] = np.nan
     else:
         assert kind == "random"
-    return o, d, mt
+    return o, d, mt, bt
 
 
 @pytest.mark.parametrize("kind", ["random", "parked", "axis_parallel",
@@ -392,7 +402,8 @@ def test_union_box_filter_is_exact(kind, seed):
     lo = rng.uniform(-5.0, 5.0, (nb, 3))
     boxes = np.concatenate([lo, lo + rng.uniform(0.0, 2.0, (nb, 3))],
                            -1).astype(np.float32)
-    o, d, mt = (torch.from_numpy(x) for x in _filter_rays(kind, rng, boxes))
+    o, d, mt, _ = (torch.from_numpy(x)
+                   for x in _filter_rays(kind, rng, boxes))
     boxes = torch.from_numpy(boxes)
     oc = [o[:, k] for k in range(3)]
     par, inv = ce._ray_recips(d)
@@ -496,22 +507,195 @@ def test_k5_replay_in_groups_with_early_exit_equals_plain(world, tables,
 
 
 # ---------------------------------------------------------------------------
+# K4's kernel design, replayed in torch: the prune on union boxes, groups of
+# four entries, the suffix exit (csrc/cull_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def _prune_fails(box, o, inv, par, best_t):
+    """Fails K4's gate (``tmin <= tmax``, ``tmax >= THRESHOLD``, ``tmin <
+    best_t``, parallel containment) on ``box`` for certain: every
+    comparison in its negated form, so a NaN keeps the lane."""
+    tns, tfs, inside = ce._slab_terms(box, o, inv, par)
+    tmin, tmax = ce._max3(tns), ce._min3(tfs)
+    return ((tmin > tmax) | (tmax < ce.rm.THRESHOLD) | (tmin >= best_t)
+            | ~inside)
+
+
+@pytest.mark.parametrize("kind", ["random", "parked", "axis_parallel",
+                                  "inside", "tiny_d", "max_t"])
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2 ** 31 - 1))
+def test_union_box_prune_is_exact(kind, seed):
+    """A lane that fails the closest-hit gate on a union of boxes for
+    certain under its best t fails it on each member, under that best t
+    and under any later (smaller) one: the groups and the rest of the list
+    K4 passes over hold no hit the lane could take."""
+    rng = np.random.default_rng(seed)
+    nb = int(rng.integers(1, 12))
+    lo = rng.uniform(-5.0, 5.0, (nb, 3))
+    boxes = np.concatenate([lo, lo + rng.uniform(0.0, 2.0, (nb, 3))],
+                           -1).astype(np.float32)
+    o, d, _, bt = (torch.from_numpy(x)
+                   for x in _filter_rays(kind, rng, boxes))
+    later = torch.where(torch.from_numpy(rng.random(bt.shape[0]) < 0.5),
+                        bt * 0.5, bt)
+    boxes = torch.from_numpy(boxes)
+    oc = [o[:, k] for k in range(3)]
+    par, inv = ce._ray_recips(d)
+    fails = _prune_fails(_union(boxes), oc, inv, par, bt)
+    some = torch.zeros_like(fails)
+    for b in boxes:
+        tns, tfs, inside = ce._slab_terms(b, oc, inv, par)
+        tmin, tmax = ce._max3(tns), ce._min3(tfs)
+        ok = (tmin <= tmax) & (tmax >= ce.rm.THRESHOLD) & inside
+        for best in (bt, later):
+            passes = ok & (tmin < best)
+            assert not bool((passes & fails).any()), (kind, seed)
+            some |= passes
+    # a NaN best t fails no lane that an empty best (inf) keeps
+    nan = torch.isnan(bt)
+    no_hit = _prune_fails(_union(boxes), oc, inv, par, torch.full_like(
+        bt, float("inf")))
+    assert not bool((fails & nan & ~no_hit).any())
+    if kind in ("random", "parked", "max_t"):  # the prune does prune
+        assert bool(fails.any())
+    if kind == "inside":  # and rays do pass the gate
+        assert bool(some.any()) and not bool(fails.all())
+    if kind == "parked":
+        assert bool(fails[::2].all())
+
+
+def _k4_replay(o, d, cand, info, tile, tables, group=4, span=4):
+    """K4 as its kernel runs it: per tile the list staged with the union
+    box of each group of ``group`` entries, of each span of ``span``
+    groups, and the suffix union from each span to the end of the list;
+    each warp of 32 rays walks the spans in list order, leaving once every
+    lane fails the closest-hit gate on the suffix union under its own best
+    t, and passing over a span, then a group, that every lane fails (or has
+    left).  Each entry's update is the plain version's
+    (``cull._closest_update``) under the lane's best.  Returns ``(Hit,
+    warps that left early, spans and groups passed over)``."""
+    R = o.shape[0]
+    inst_f, inst_i = tables.inst_f32, tables.inst_i32
+    max_tris = int(inst_i[:, ce._II_TRI_COUNT].max())
+    any_tmpl = bool((inst_i[:, ce._II_IS_BOX] == 0).any())
+    best = cull._Best(R, o.device)
+    inverted = torch.tensor([ce.F32_BIG] * 3 + [ce.F32_NEG_BIG] * 3)
+    exits = skipped = 0
+    for t in range(R // tile):
+        loop_n, over = int(info[t, 0]), bool(info[t, 1] > 0)
+        inst = [k if over else int(cand[t, min(k, cand.shape[1] - 1)])
+                for k in range(loop_n)]
+        valid = [bool(inst_i[i, ce._II_VALID] > 0) for i in inst]
+
+        def union(first, end):
+            b = inst_f[[inst[k] for k in range(first, min(end, loop_n))
+                        if valid[k]], :6]
+            return _union(b) if b.shape[0] else inverted
+
+        rows = slice(t * tile, (t + 1) * tile)
+        ot, dt = o[rows], d[rows]
+        oc, dc = [ot[:, k] for k in range(3)], [dt[:, k] for k in range(3)]
+        par, inv = ce._ray_recips(dt)
+        sub = cull._Best(tile, o.device)
+        gone = torch.zeros(tile // 32, dtype=torch.bool)  # warps that left
+
+        for k0 in range(0, loop_n, group * span):
+            done = _prune_fails(union(k0, loop_n), oc, inv, par, sub.t)
+            leave = done.view(-1, 32).all(-1) & ~gone
+            exits += int(leave.sum())
+            gone |= leave
+            # a lane that is done fails every later gate: its warp's pass
+            # needs only the others
+            done_w = done.view(-1, 32)
+            pass_span = ((_prune_fails(union(k0, k0 + group * span), oc, inv,
+                                       par, sub.t).view(-1, 32) | done_w)
+                         .all(-1) & ~gone)
+            skipped += int(pass_span.sum())
+            for g0 in range(k0, min(k0 + group * span, loop_n), group):
+                pass_group = ((_prune_fails(union(g0, g0 + group), oc, inv,
+                                            par, sub.t).view(-1, 32)
+                               | done_w).all(-1) & ~gone & ~pass_span)
+                skipped += int(pass_group.sum())
+                walk = (~gone & ~pass_span & ~pass_group).repeat_interleave(
+                    32)
+                for k in range(g0, min(g0 + group, loop_n)):
+                    f = inst_f[inst[k]].expand(tile, -1)
+                    ii = inst_i[inst[k]].expand(tile, -1)
+                    tns, tfs, inside = ce._slab_terms(f, oc, inv, par)
+                    tmin, tmax = ce._max3(tns), ce._min3(tfs)
+                    gate = (walk & (tmin <= tmax)
+                            & (tmax >= ce.rm.THRESHOLD) & (tmin < sub.t)
+                            & inside & valid[k])
+                    cull._closest_update(sub, f, ii, gate, tns, tfs, inside,
+                                         oc, dc, tables.tmpl, max_tris,
+                                         any_tmpl)
+        for name in ("t", "tri", "u", "v", "mat"):
+            getattr(best, name)[rows] = getattr(sub, name)
+        for c in range(3):
+            best.n[c][rows] = sub.n[c]
+    return best.hit(), exits, skipped
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("rays", ["primary", "shadow", "random"])
+def test_k4_replay_in_groups_with_suffix_exit_equals_plain(world, tables,
+                                                           rays):
+    _, data, _, cfg = _casts(world, tables, tile_rows=8)
+    tile = 8 * cull.LANES
+    o, d = _primary(world, 64, 64)
+    if rays == "shadow":  # shadow-ray origins (parked lanes), as a cast
+        o, d = _shadow(world, o, d)
+    elif rays == "random":
+        o, d = _random(2048, seed=9)
+    lay = cull.CullLayout.of(o.shape[0], 1 << 19, tile)
+    o_p, d_p = lay.pad_rays(torch.from_numpy(o), torch.from_numpy(d), 1.0e30)
+    cand, info = cull.tile_candidates(o_p, d_p, tile, data.tables.inst_f32,
+                                      cull.MAX_CAND)
+    want = cull.cull_cast_reference(o_p, d_p, cand, info, tile, data.tables)
+    got, exits, skipped = _k4_replay(o_p, d_p, cand, info, tile, data.tables)
+    for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert 0 < int(want.valid.sum()) < want.valid.numel()
+    assert exits > 0 and skipped > 0
+    over = info[:, 1] > 0
+    if rays == "primary":  # overflowed and listed tiles
+        assert bool(over.any()) and bool((~over & (info[:, 0] > 0)).any())
+    if rays == "shadow":  # overflowed and empty-list tiles
+        assert bool(over.any()) and bool((info[:, 0] == 0).any())
+
+
+# ---------------------------------------------------------------------------
 # the plain versions' work counts (the bounds of chip_smoke.py)
 # ---------------------------------------------------------------------------
 
 def _skip_next(v):
-    """``bvh_walk.cuh``'s ``skip_next`` per ray: climb while a right child,
-    then step to the sibling; 0 ends the walk."""
+    """``_skip_next`` per ray as the JAX package writes it: climb while a
+    right child, then step to the sibling; 0 ends the walk."""
     for _ in range(int(v.max()).bit_length()):
         v = torch.where((v > 1) & (v % 2 == 1), v // 2, v)
     return torch.where(v == 1, 0, v + 1)
 
 
+def test_skip_next_closed_form_equals_the_loop():
+    """``bvh_walk.cuh``'s ``skip_next`` (K2, K3): ``w = v >> (__ffs(~v) -
+    1)``, then ``w == 0 ? 0 : w + 1`` -- for every heap index below 2**20.
+    (Ending with ``v == 1 ? 0 : v + 1`` on the shifted value would send the
+    rightmost path, ``v = 2**k - 1``, back to node 1.)"""
+    v = torch.arange(1, 1 << 20, dtype=torch.int64)
+    low_zero = ~v & (v + 1)  # 1 << (__ffs(~v) - 1)
+    w = v >> (torch.log2(low_zero.double()).round().long())
+    closed = torch.where(w == 0, 0, w + 1)
+    assert torch.equal(closed, _skip_next(v))
+    assert int(closed[(1 << 10) - 2]) == 0  # v = 1023: the walk ends
+
+
 def _walk_in_lockstep(data, queries, closest):
-    """The LBVH kernels' stackless walk written out per ray as the CUDA
-    code runs it, every ray one node per step: ``(work [R, 4], best t)``
-    of K1 (``closest``, one query) or ``(work, blocked masks)`` of K3/K2
-    (one or two queries, the walk ending once all are blocked)."""
+    """The LBVH's per-thread stackless walk written out per ray, every ray
+    one node per step -- K2's and K3's kernels, and the walk whose visits
+    the plain versions count as K1's work: ``(work [R, 4], best t)`` of a
+    closest hit (``closest``, one query) or ``(work, blocked masks)`` of
+    K3/K2 (one or two queries, the walk ending once all are blocked)."""
     n, tab = data.n_leaves, data.tables
     total = 2 * n - 1
     R = queries[0][0].shape[0]

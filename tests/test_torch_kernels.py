@@ -14,7 +14,10 @@ normal at atol 1e-5; material exact; instance and box face exact (with
 template tables the triangle id and uv too).  Occlusion masks are exact.
 The per-ray walk may differ from the tile walk on a boundary ray where the
 slab test and the triangle test disagree by a rounding; the budget for that
-is 1e-4 of the rays, which at these sizes means none."""
+is 1e-4 of the rays, which at these sizes means none.
+
+K1's kernel walk is replayed in torch and held to the plain version in
+every output, also on degenerate rays."""
 
 import os
 
@@ -32,7 +35,7 @@ from raytracer_tpu.scene import device_scene
 
 from raytracer_tpu_torch import convert
 from raytracer_tpu_torch.render import cuda_engine as ce
-from raytracer_tpu_torch.render import geometry
+from raytracer_tpu_torch.render import cull, geometry
 
 torch.set_num_threads(2)
 
@@ -211,3 +214,129 @@ def test_bvh_occlude_matches_pallas(setup, tables, max_t):
     _mismatch_ok(j != t_.numpy(), f"K3 {max_t}")
     pair = ce.bvh_occlude2(*_torch(q1), *_torch(q2), data)
     assert torch.equal(t_, pair[0] if max_t == "finite" else pair[1])
+
+
+# ---------------------------------------------------------------------------
+# K1's kernel walk, replayed in torch (csrc/bvh_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def _degenerate_rays(kind, data, n=2048, seed=0):
+    """Rays the slab arithmetic treats specially, aimed at the tree:
+    ``tiny_d`` (1 / d overflows; origins on node planes make 0 * inf) and
+    ``axis_parallel`` (exact zero direction components, origins on node
+    planes: containment at its edge)."""
+    f = np.float32
+    rng = np.random.default_rng(seed)
+    boxes = data.nodes[:, :6].numpy()
+    boxes = boxes[data.nodes[:, 6].numpy() > 0]
+    lo, hi = boxes[:, :3].min(0), boxes[:, 3:].max(0)
+    o = rng.uniform(lo - 2.0, hi + 2.0, (n, 3)).astype(f)
+    target = rng.uniform(lo, hi, (n, 3)).astype(f)
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    planes = np.concatenate([boxes[:, :3], boxes[:, 3:]])
+    on = rng.random((n, 3)) < 0.5
+    o = np.where(on, planes[rng.integers(0, planes.shape[0], n)], o)
+    if kind == "tiny_d":
+        d[rng.random((n, 3)) < 0.4] = f(1e-42)
+        d[rng.random((n, 3)) < 0.2] = f(-1e-42)
+    else:
+        assert kind == "axis_parallel"
+        d[rng.random((n, 3)) < 0.4] = 0.0
+        d[np.all(d == 0.0, -1), 1] = -1.0
+    return o.astype(f), d.astype(f)
+
+
+def _pair_walk(data, ro, rd):
+    """K1's walk as its kernel runs it, every ray one step at a time: a
+    step tests both children of the node the ray entered; two leaves go
+    through their own gates in preorder; of two inner children that both
+    vote, the left is entered and the right's vote is kept for later; with
+    nothing to enter the ray pops to the deepest right child kept.  Leaf
+    updates are the plain versions' (``cull._closest_update``).  Returns
+    ``(Hit, steps per ray, kept right children whose own vote would fail
+    when entered)``."""
+    n, tab = data.n_leaves, data.tables
+    total = 2 * n - 1
+    R = ro.shape[0]
+    o = [ro[:, k] for k in range(3)]
+    d = [rd[:, k] for k in range(3)]
+    par, inv = ce._ray_recips(rd)
+    max_tris = int(tab.inst_i32[:, ce._II_TRI_COUNT].max())
+    any_tmpl = bool((tab.inst_i32[:, ce._II_IS_BOX] == 0).any())
+    best = cull._Best(R, ro.device)
+
+    def gate(u):
+        row = data.nodes[(total - u).clamp(0, total - 1)]
+        tns, tfs, inside = ce._slab_terms(row, o, inv, par)
+        tmin, tmax = ce._max3(tns), ce._min3(tfs)
+        ok = ((tmin <= tmax) & (tmax >= ce.rm.THRESHOLD) & inside
+              & (row[:, 6] > 0.0))
+        return tns, tfs, inside, tmin, ok
+
+    def leaf(u, g, lanes):
+        tns, tfs, inside, tmin, ok = g
+        inst = data.ordering[(total - u).clamp(0, n - 1)].long()
+        go = lanes & ok & (tmin < best.t) & (inst >= 0)
+        i = inst.clamp(min=0)
+        cull._closest_update(best, tab.inst_f32[i], tab.inst_i32[i], go, tns,
+                             tfs, inside, o, d, tab.tmpl, max_tris, any_tmpl)
+
+    one = torch.ones(R, dtype=torch.long)
+    g = gate(one)
+    v = torch.where(g[4] & (g[3] < best.t), one, 0)
+    depth = torch.zeros(R, dtype=torch.long)
+    pend = torch.zeros(R, dtype=torch.long)
+    steps = torch.zeros(R, dtype=torch.long)
+    stale = 0
+    while bool((v > 0).any()):
+        live = v > 0
+        steps += live
+        c = 2 * v
+        g0, g1 = gate(c), gate(c + 1)
+        leaves = live & (c >= n)
+        leaf(c, g0, leaves)
+        leaf(c + 1, g1, leaves)
+        inner = live & ~leaves
+        go0 = inner & g0[4] & (g0[3] < best.t)
+        go1 = inner & g1[4] & (g1[3] < best.t)
+        down = go0 | go1
+        pend = torch.where(go0 & go1, pend | (1 << (depth + 1)), pend)
+        pop = live & ~down & (pend > 0)
+        top = torch.where(pend > 0, torch.log2(pend.clamp(min=1).double())
+                          .floor().long(), 0)
+        right = (v >> (depth - top).clamp(min=0)) | 1
+        rg = gate(right)  # the kept vote, taken again under today's best
+        stale += int((pop & ~(rg[4] & (rg[3] < best.t))).sum())
+        v = torch.where(down, torch.where(go0, c, c + 1),
+                        torch.where(pop, right, torch.where(live, 0, v)))
+        depth = torch.where(down, depth + 1, torch.where(pop, top, depth))
+        pend = torch.where(pop, pend & ~(1 << top), pend)
+    return best.hit(), steps, stale
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("rays", ["primary", "random", "tiny_d",
+                                  "axis_parallel"])
+def test_k1_pair_walk_equals_plain(setup, tables, rays):
+    """K1's walk (both children a step, right votes kept) gives the plain
+    version's all-leaves loop in t, triangle, uv, normal and material, on
+    degenerate rays too; it takes no more steps than the per-thread walk
+    visits nodes, and the kept votes do go stale."""
+    data = setup["casts"][tables][1]
+    if rays in ("primary", "random"):
+        o, d = setup["rays"][rays]
+    else:
+        o, d = _degenerate_rays(rays, data)
+    o, d = torch.from_numpy(np.ascontiguousarray(o)), torch.from_numpy(
+        np.ascontiguousarray(d))
+    work = torch.zeros(o.shape[0], 4, dtype=torch.long)
+    want = ce.bvh_cast_reference(o, d, data, work=work)
+    got, steps, stale = _pair_walk(data, o, d)
+    for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert 0 < int(want.valid.sum())
+    assert bool((steps <= work[:, 0]).all())
+    assert int(steps.sum()) < int(work[:, 0].sum())
+    if rays == "primary":
+        assert stale > 0

@@ -53,7 +53,32 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    of the frames, the step and K4/K5/K6 against their plain versions, and
    torch.profiler summaries of the terrain6 frames on both paths and of
    the cull's step.  The cuda engine's MXU frames must never build the
-   [T, K, 40] copy of the columns (mxu.gather_columns is counted).
+   [T, K, 40] copy of the columns (mxu.gather_columns is counted);
+14. the geometry-gradient path (edge_aware_grads; tables with the box fast
+   path and box_exact_uv): K1's exact_uv instantiation against its plain
+   version on terrain8's 640x480 and 1920x1080 primary rays and the
+   degenerate rays, every output identical;
+15. K1's visits instantiation: its per-ray count equal to its plain version
+   (the replay of its walk, cuda_engine.k1_walk_replay) on the 640x480
+   primary and the random rays, and equal to the per-thread walk's count
+   (_WalkVisits) plus two for each stale kept vote, with no more steps than
+   that count; and the
+   O(log N) envelope on grids of 256 and 16,384 touching cubes (counters
+   reset just before);
+16. K4's exact_uv instantiation against its plain version on terrain6's
+   640x480 and 1920x1080 primary rays and the degenerate rays;
+17. the cull on a 96x96 grid (9,216 instances, lists staged in pieces):
+   K4, and K5 along the same rays, against their plain versions on two
+   overflowed tiles and one other, and the forced cull's 640x480 frame
+   (launch counters reset just before) against the LBVH walk's;
+18. the three 1920x1080 geometry-gradient steps (materials, lights, camera
+   and vertices; terrain8 on the walk, terrain6 on the cull and on the MXU
+   cast), each with the launch counters reset just before: grads equal to
+   the "torch" engine's at rtol 1e-4 / atol 1e-6 (verts: 1e-6 max|g|),
+   step ms and Mrays/s (median of 5), and the backward's top device
+   kernels (torch.profiler); then the new instantiations' timings and
+   bounds (the exact_uv branch's work counted by the plain versions: the
+   box updates it runs on, ``work`` column ``exact``).
 
 Beside each kernel's ms per launch (CUDA events around the wrapper: the
 ctypes call and the output allocation included) the device time alone is
@@ -74,8 +99,10 @@ a triangle, or every triangle on a dense tile) at the operations a column
 needs, and as bytes its rays, ids, info and outputs and the column table
 once (no staged copy of the columns: no implementation needs one).
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the last is a JSON object describing each kernel (K1's
+exact_uv and visits instantiations and K4's exact_uv one as rows of their
+own); the last line is ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -113,9 +140,11 @@ PEAK_FP32_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
 # the terms that are zero by construction (rd6 = [d, o x d, 0, 0] against
 # the edges: 6 terms each; rp8 = [o, d, 1, 0] against the plane numerator:
 # 4, and the denominator: 3; 45 operations), then the barycentric and
-# hit-time tests (17).
+# hit-time tests (17); and the exact_uv branch on a box hit that took the
+# update: the local hit point (9), two signed barycentric evaluations with
+# their containment tests (2 x 45), the choice (3).
 OPS = {"slab": 25, "box": 7, "inst": 129, "tri": 89, "write": 11,
-       "mxu_col": 62}
+       "mxu_col": 62, "exact": 102}
 SIZES = [(640, 480), (1920, 1080)]
 N_RANDOM = 65536
 REPS = 10
@@ -125,6 +154,7 @@ ATOL_FRAME = 1e-5
 # order of the atomic sums in the gather backward differs
 RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-6
 LR = 0.05  # the CLI's --lr default
+VERTS = "['verts']"  # the vertex leaf's path in a parameter tree
 
 
 def _ms(fn, reps=REPS, warmup=True):
@@ -159,7 +189,8 @@ def _device_ms(fn, reps=10):
     without the events of some calls, so each kernel's mean duration is
     taken over the events that did arrive and weighted by how often a call
     launches it (its count over the count of the call's least frequent
-    ``rt::`` kernel); an empty trace is taken again."""
+    ``rt::`` kernel, template instantiations included); an empty trace is
+    taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -176,7 +207,7 @@ def _device_ms(fn, reps=10):
                 c = by_name.setdefault(e["name"], [0, 0.0])
                 c[0] += 1
                 c[1] += e["dur"] / 1e3
-        ours = [c[0] for k, c in by_name.items() if k.startswith("rt::")]
+        ours = [c[0] for k, c in by_name.items() if "rt::" in k]
         if ours:
             calls = min(ours)
             return sum(c[1] / c[0] * max(1, round(c[0] / calls))
@@ -230,21 +261,23 @@ def _bound(nbytes, ops):
             "bytes": int(nbytes), "ops": int(ops)}
 
 
-def _work(reference, *args):
+def _work(reference, *args, **kw):
     """Per-ray work counts (``cuda_engine.WORK_COLUMNS``) of a kernel on
     ``args``, from its plain version."""
-    work = torch.zeros(args[0].shape[0], 4, dtype=torch.int64,
-                       device=args[0].device)
-    reference(*args, work=work)
+    from raytracer_tpu_torch.render import cuda_engine as ce
+
+    work = torch.zeros(args[0].shape[0], len(ce.WORK_COLUMNS),
+                       dtype=torch.int64, device=args[0].device)
+    reference(*args, work=work, **kw)
     return work
 
 
-def _work_ops(work, closest_hit):
+def _work_ops(work, closest_hit, exact_uv=False):
     """FP32 operations of a walk or list kernel from its per-ray work
-    counts."""
-    slab, box, inst, tri = work.sum(0).tolist()
+    counts; ``exact_uv``: its box updates run the exact_uv branch."""
+    slab, box, inst, tri, exact = work.sum(0).tolist()
     ops = (slab * OPS["slab"] + box * OPS["box"] + inst * OPS["inst"]
-           + tri * OPS["tri"])
+           + tri * OPS["tri"] + (exact * OPS["exact"] if exact_uv else 0))
     return ops + (work.shape[0] * OPS["write"] if closest_hit else 0)
 
 
@@ -687,6 +720,389 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
     return out
 
 
+def _profile_backward(loss_fn, make_params, smi, label, steps=2):
+    """torch.profiler over the backward alone (each forward runs outside the
+    trace): device ms per backward and its top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch.diff import grad_of
+
+    kernels = []
+    for i in range(steps + 1):  # the first backward warms up
+        params = make_params()
+        loss = loss_fn(params)
+        torch.cuda.synchronize()
+        if i == 0:
+            grad_of(loss, params)
+            torch.cuda.synchronize()
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            grad_of(loss, params)
+            torch.cuda.synchronize()
+        kernels += [e for e in _trace_events(prof) if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    busy = sum(by_name.values()) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"device_busy_ms": busy, "kernels_per_backward":
+           len(kernels) / steps,
+           "top_ms": [[k[:100], v / steps] for k, v in top]}
+    print(f"profile {label} backward [{smi}]: device busy {busy:.3f} ms, "
+          f"{out['kernels_per_backward']:.0f} kernels")
+    for k, v in out["top_ms"]:
+        print(f"  {v:9.3f} ms  {k}")
+    return out
+
+
+def _geomgrad(dev, smi, rays_random):
+    """Phases 14-18: the geometry-gradient path (``edge_aware_grads``,
+    vertices trainable): K1's and K4's exact_uv instantiations, K1's visit
+    counts, the cull on 9,216 instances, and the three 1080p steps.  Returns
+    the numbers for the report and the kernels line."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import tree
+    from raytracer_tpu_torch.builder import make_grid_world, scale_camera
+    from raytracer_tpu_torch.diff import (grad_of, make_loss_fn,
+                                          trainable_params)
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render import cull, mxu
+    from raytracer_tpu_torch.render.engine import (_frame_rays_blocked,
+                                                   render_frame)
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+
+    out = {"errs": {"bvh_cast_exact_uv": 0.0, "cull_cast_exact_uv": 0.0,
+                    "bvh_visit_counts": 0.0},
+           "launches": {}, "timing": {}, "bounds": {}, "steps": {}}
+    main, big = SIZES[0], SIZES[-1]
+    keys = [f"{s[0]}x{s[1]}" for s in SIZES]
+
+    def world(path, **change):
+        w = rtt.generate(path)
+        scene = rtt.to_device(w.scene, dev)
+        cfg = w.config.replace(engine="cuda", edge_aware_grads=True,
+                               **change)
+        cams = {s: rtt.to_device(scale_camera(w.camera, s[0],
+                                              w.config.width), dev)
+                for s in SIZES}
+        data = (ce.prepare_cast(scene, expand_geometry(scene), cfg)
+                if cfg.pallas_kernel == "scalar" else None)
+        return dict(scene=scene, cfg=cfg, cams=cams, data=data)
+
+    w8, w6 = world(WORLD), world(WORLD6)
+    if int(w8["data"].tables.inst_i32[:, ce._II_IS_BOX].sum()) == 0:
+        raise AssertionError("edge_aware_grads tables lost the box fast path")
+
+    def frame_rays(w, s):
+        return _frame_rays_blocked(w["cams"][s], w["cfg"].replace(
+            width=s[0], height=s[1]))[:2]
+
+    # ---- phase 14: K1's exact_uv instantiation ------------------------------
+    data8 = w8["data"]
+    k1_rays = {f"primary {k}": frame_rays(w8, s) for k, s in zip(keys, SIZES)}
+    k1_rays["degenerate"] = _degenerate(*rays_random,
+                                        data8.tables.inst_f32[:, :6])
+    for rname, (o, d) in k1_rays.items():
+        hk = ce.bvh_cast(o, d, data8, exact_uv=True)
+        hp = ce.bvh_cast_reference(o, d, data8, exact_uv=True)
+        torch.cuda.synchronize()
+        _compare_hits(f"K1 exact_uv {rname}", hk, hp)
+        moved = float((hk.uv[hk.valid] - 1.0 / 3.0).abs().amax(-1).gt(1e-6)
+                      .float().mean())
+        if moved < 0.5:
+            raise AssertionError(f"K1 exact_uv {rname}: only {moved:.3f} of "
+                                 "the hits left uv (1/3, 1/3)")
+        print(f"K1 exact_uv {rname:18s}: {int(hk.valid.sum())} hits ({moved:.3f}"
+              " with their true uv), every output identical to plain")
+
+    # ---- phase 15: K1's visit counts ----------------------------------------
+    vis = {}
+    for rname, (o, d) in ((f"primary {keys[0]}", k1_rays[f"primary {keys[0]}"]),
+                          (f"random {N_RANDOM}", rays_random)):
+        v = ce.bvh_visit_counts(o, d, data8).long()
+        plain = ce.bvh_visit_counts_reference(o, d, data8).long()
+        _, replay, stale = ce.k1_walk_replay(o, d, data8)
+        walk = _work(ce.bvh_cast_reference, o, d, data8)[:, 0]
+        torch.cuda.synchronize()
+        out["errs"]["bvh_visit_counts"] = max(
+            out["errs"]["bvh_visit_counts"], float((v - plain).abs().max()))
+        if not torch.equal(v, plain):
+            raise AssertionError(f"K1 visits {rname}: differ from the plain "
+                                 f"version on {int((v != plain).sum())} rays")
+        if not torch.equal(replay, plain):
+            raise AssertionError(f"K1 visits {rname}: the plain version is "
+                                 "not the replay's count")
+        if not torch.equal(v, walk + 2 * stale):
+            raise AssertionError(f"K1 visits {rname}: not the per-thread "
+                                 "walk's plus two a stale vote")
+        if not bool(((v - 1) // 2 <= walk).all()):
+            raise AssertionError(f"K1 visits {rname}: more steps than the "
+                                 "per-thread walk's visits")
+        vis[rname] = {"mean": float(v.float().mean()),
+                      "walk_mean": float(walk.float().mean()),
+                      "above_walk_share": float((v > walk).float().mean()),
+                      "max": int(v.max())}
+        print(f"K1 visits {rname:18s}: == plain (the replay); mean "
+              f"{vis[rname]['mean']:.3f} (per-thread walk "
+              f"{vis[rname]['walk_mean']:.3f}; "
+              f"{vis[rname]['above_walk_share']:.4f} of rays above it by "
+              "two a stale vote)")
+    ce.bvh_visit_counts.launches = 0
+    grid_means = {}
+    for side in (16, 128):
+        gs_np, _, gcfg = make_grid_world(side)
+        gs = rtt.to_device(gs_np, dev)
+        gdata = ce.prepare_cast(gs, expand_geometry(gs),
+                                gcfg.replace(pallas_traversal="bvh"))
+        xs = torch.linspace(0.5 * side - 6.0, 0.5 * side + 6.0, 32,
+                            device=dev)
+        gx, gz = torch.meshgrid(xs, xs, indexing="xy")
+        o = torch.stack([gx.reshape(-1), torch.full_like(gx, 10.0).reshape(-1),
+                         gz.reshape(-1)], -1).contiguous()
+        d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand_as(o)
+        d = d.contiguous()
+        if not bool(ce.bvh_cast(o, d, gdata).valid.all()):
+            raise AssertionError(f"grid {side}: rays missed the grid")
+        grid_means[side * side] = float(ce.bvh_visit_counts(o, d, gdata)
+                                        .float().mean())
+    out["launches"]["bvh_visit_counts"] = ce.bvh_visit_counts.launches
+    if not grid_means[256] < grid_means[16384] < 4.0 * grid_means[256]:
+        raise AssertionError(f"K1 visits: not O(log N): {grid_means}")
+    print(f"K1 visits O(log N) [{smi}]: mean per ray {grid_means} "
+          f"(ratio {grid_means[16384] / grid_means[256]:.3f} < 4), "
+          f"launches {out['launches']['bvh_visit_counts']}")
+    out["visits"] = dict(vis, grid_means=grid_means)
+
+    # ---- phase 16: K4's exact_uv instantiation ------------------------------
+    tab6 = w6["data"].tables
+
+    def lists(cfg, o, d, tables):
+        tile = cull.tile_rows_of(cfg) * cull.LANES
+        lay = cull.CullLayout.of(o.shape[0], cfg.pallas_ray_chunk, tile)
+        o_p, d_p = lay.pad_rays(o, d, 1.0e30)
+        cand, info = cull.tile_candidates(o_p, d_p, tile, tables.inst_f32,
+                                          cull.MAX_CAND)
+        return o_p, d_p, cand, info, tile
+
+    k4_args = {}
+    k4_rays = {f"primary {k}": (s, frame_rays(w6, s))
+               for k, s in zip(keys, SIZES)}
+    k4_rays["degenerate"] = (main, _degenerate(*rays_random,
+                                                tab6.inst_f32[:, :6]))
+    for rname, (s, (o, d)) in k4_rays.items():
+        args = lists(w6["cfg"].replace(width=s[0], height=s[1]), o, d, tab6)
+        k4_args[rname] = args + (tab6,)
+        hk = cull.cull_cast(*k4_args[rname], exact_uv=True)
+        hp = cull.cull_cast_reference(*k4_args[rname], exact_uv=True)
+        torch.cuda.synchronize()
+        _compare_hits(f"K4 exact_uv {rname}", hk, hp)
+        print(f"K4 exact_uv {rname:18s}: {int(hk.valid.sum())} hits over "
+              f"{args[3].shape[0]} tiles, every output identical to plain")
+
+    # ---- phase 17: the cull on 9,216 instances ------------------------------
+    g_np, g_cam, g_cfg = make_grid_world(96)
+    gs = rtt.to_device(g_np, dev)
+    g_cam = rtt.to_device(g_cam, dev)
+    g_cfg = g_cfg.replace(engine="cuda", pallas_traversal="cull")
+    gdata = ce.prepare_cast(gs, expand_geometry(gs), g_cfg)
+    if gdata.nodes is not None:
+        raise AssertionError("the forced cull built an LBVH")
+    ro, rd, _, _ = _frame_rays_blocked(g_cam, g_cfg)
+    o_p, d_p, cand, info, tile = lists(g_cfg, ro, rd, gdata.tables)
+    # two overflowed tiles (lists of all 9,216 instances, 18 pieces) and
+    # one other (listed or empty), where there is one
+    over = (info[:, 1] > 0).nonzero().flatten()
+    over = over[over.numel() // 2:][:2].tolist()  # mid-frame: they hit
+    pick = over + (info[:, 1] == 0).nonzero().flatten()[:1].tolist()
+    if len(over) < 2 or int(info[over[0], 0]) != 9216:
+        raise AssertionError(f"grid 96: tiles {info.tolist()}")
+    sel = torch.cat([torch.arange(t * tile, (t + 1) * tile, device=dev)
+                     for t in pick])
+    o, d = o_p[sel].contiguous(), d_p[sel].contiguous()
+    c, i = cand[pick].contiguous(), info[pick].contiguous()
+    hk = cull.cull_cast(o, d, c, i, tile, gdata.tables)
+    hp = cull.cull_cast_reference(o, d, c, i, tile, gdata.tables)
+    torch.cuda.synchronize()
+    _compare_hits("K4 grid 9216", hk, hp)
+    # K5 along the same rays (the shadow rays of a grid seen from above
+    # reach no blocker): any hit within +inf, and within 0.9 of the closest
+    # hit (no blocker lies before it)
+    t_hit = torch.where(hk.valid, hk.t, 1.0)
+    for qname, mt in (("+inf", torch.full_like(t_hit, float("inf"))),
+                      ("0.9 t_hit", 0.9 * t_hit)):
+        bk = cull.cull_occlude(o, d, mt, c, i, tile, gdata.tables)
+        bp = cull.cull_occlude_reference(o, d, mt, c, i, tile, gdata.tables)
+        torch.cuda.synchronize()
+        if not torch.equal(bk, bp):
+            raise AssertionError(f"K5 grid 9216 {qname}: differs on "
+                                 f"{int((bk != bp).sum())} rays")
+        want = hk.valid if qname == "+inf" else torch.zeros_like(hk.valid)
+        if not torch.equal(bk, want):
+            raise AssertionError(f"K5 grid 9216 {qname}: not the closest "
+                                 "hits' mask")
+        print(f"K5 grid 9216 max_t {qname:9s}: blocked {int(bk.sum())} of "
+              f"{bk.numel()}, identical to plain")
+    print(f"K4 grid 9216: tiles {pick} (lists {[int(info[t, 0]) for t in pick]})"
+          f", {int(hk.valid.sum())} hits, every output identical to plain")
+    cull.cull_cast.launches = cull.cull_occlude.launches = 0
+    img_c = render_frame(gs, g_cam, g_cfg)
+    torch.cuda.synchronize()
+    g_launch = {"cull_cast": cull.cull_cast.launches,
+                "cull_occlude": cull.cull_occlude.launches}
+    img_w = render_frame(gs, g_cam, g_cfg.replace(pallas_traversal="bvh"))
+    d_cw = float((img_c - img_w).abs().max())
+    hit_share = float((img_c[..., :3].amax(-1) > 0).float().mean())
+    if (g_launch["cull_cast"] < 1 or g_launch["cull_occlude"] < 2
+            or d_cw > ATOL_FRAME or hit_share < 0.3):
+        raise AssertionError(f"grid 9216 cull frame: launches {g_launch}, "
+                             f"vs walk {d_cw}, hit share {hit_share}")
+    g_ms = _ms(lambda: render_frame(gs, g_cam, g_cfg), reps=3)
+    print(f"grid 9216 {keys[0]} cull frame [{smi}]: == LBVH frame (max abs "
+          f"diff {d_cw:.3g}), hit share {hit_share:.4f}, launches {g_launch},"
+          f" {g_ms:.3f} ms ({float(info[:, 1].float().mean()):.3f} of tiles "
+          "overflowed)")
+    out["grid9216"] = {"launches": g_launch, "vs_walk": d_cw,
+                       "hit_share": hit_share, "frame_ms": g_ms}
+
+    # ---- phase 18: the three 1080p geometry-gradient steps ------------------
+    cases = {"terrain8": (w8, w8["cfg"]), "terrain6": (w6, w6["cfg"]),
+             "terrain6_mxu": (w6, w6["cfg"].replace(pallas_kernel="mxu"))}
+    need = {"terrain8": (("bvh_cast_exact_uv", 1), ("bvh_occlude2", 1)),
+            "terrain6": (("cull_cast_exact_uv", 1), ("cull_occlude", 2)),
+            "terrain6_mxu": (("mxu_cast", 3),)}
+    counters = {"bvh_cast_exact_uv": (ce.bvh_cast, "exact_uv_launches"),
+                "cull_cast_exact_uv": (cull.cull_cast, "exact_uv_launches"),
+                "bvh_cast": (ce.bvh_cast, "launches"),
+                "bvh_occlude2": (ce.bvh_occlude2, "launches"),
+                "bvh_occlude": (ce.bvh_occlude, "launches"),
+                "cull_cast": (cull.cull_cast, "launches"),
+                "cull_occlude": (cull.cull_occlude, "launches"),
+                "mxu_cast": (mxu.mxu_cast, "launches")}
+    target = torch.zeros(big[1], big[0], 4, device=dev)
+    rays_big = big[0] * big[1]
+    for cname, (w, cfg) in cases.items():
+        cfg_b = cfg.replace(width=big[0], height=big[1])
+
+        def params_fn(w=w):
+            return trainable_params(w["scene"], w["cams"][big],
+                                    include_vertices=True)
+
+        def loss_fn(p, engine="cuda", w=w, cfg_b=cfg_b):
+            return make_loss_fn(w["scene"], w["cams"][big],
+                                cfg_b.replace(engine=engine), target)(p)
+
+        def step(engine="cuda"):
+            p = params_fn()
+            loss = loss_fn(p, engine)
+            return loss.detach(), grad_of(loss, p)
+
+        for k, attr in counters.values():
+            setattr(k, attr, 0)
+        loss_c, g_c = step()
+        torch.cuda.synchronize()
+        counts = {n: getattr(k, attr) for n, (k, attr) in counters.items()}
+        for n, least in need[cname]:
+            if counts[n] < least:
+                raise AssertionError(f"{cname} geometry step: {n} launched "
+                                     f"{counts[n]} times: {counts}")
+        for n, _ in need[cname]:
+            out["launches"].setdefault(n, counts[n])
+        loss_t, g_t = step("torch")
+        errs = {}
+        for (key, a), b in zip(tree.leaves_with_paths(g_c), tree.leaves(g_t)):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{cname} step grad {key} not finite")
+            scale = float(b.abs().max())
+            atol = ATOL_GRAD * scale if key == VERTS else ATOL_GRAD
+            torch.testing.assert_close(
+                a, b, rtol=RTOL_GRAD, atol=atol,
+                msg=lambda m, key=key: f"{cname} grad {key}: {m}")
+            errs[key] = float((a - b).abs().max())
+        if float(g_c["verts"].abs().max()) == 0.0:
+            raise AssertionError(f"{cname}: vertex grads are zero")
+        ms = _ms(step, reps=5)
+        rec = {"loss": float(loss_c), "loss_torch": float(loss_t),
+               "launches": counts, "grad_max_abs_err": errs,
+               "step_ms": ms, "mrays_per_s": rays_big / ms / 1e3}
+        print(f"{cname} geometry step {keys[-1]} [{smi}]: loss "
+              f"{float(loss_c):.6f} (torch {float(loss_t):.6f}), grads == "
+              f"torch engine (verts max abs {errs[VERTS]:.3g} of max "
+              f"|g| {float(g_t['verts'].abs().max()):.3g}); launches "
+              f"{ {n: c for n, c in counts.items() if c} }; step {ms:.3f} ms "
+              f"({rec['mrays_per_s']:.3f} Mrays/s, median of 5)")
+        rec["profile_backward"] = _profile_backward(
+            loss_fn, params_fn, smi, f"{cname} geometry step {keys[-1]}")
+        out["steps"][cname] = rec
+
+    # ---- timings and bounds of the new instantiations -----------------------
+    tab8 = _nbytes(data8.tables.inst_f32, data8.tables.inst_i32,
+                   data8.tables.tmpl, data8.nodes, data8.ordering)
+    tab6b = _nbytes(tab6.inst_f32, tab6.inst_i32, tab6.tmpl)
+    timing = out["timing"]
+    for k in keys:
+        o, d = k1_rays[f"primary {k}"]
+        a4 = k4_args[f"primary {k}"]
+        h1 = ce.bvh_cast(o, d, data8, exact_uv=True)
+        h4 = cull.cull_cast(*a4, exact_uv=True)
+        w1 = _work(ce.bvh_cast_reference, o, d, data8, exact_uv=True)
+        w4 = _work(cull.cull_cast_reference, *a4, exact_uv=True)
+        wv = _work(ce.bvh_cast_reference, o, d, data8)
+        n_exact = {"bvh_cast_exact_uv": int(w1[:, 4].sum()),
+                   "cull_cast_exact_uv": int(w4[:, 4].sum())}
+        out["bounds"][k] = {
+            "bvh_cast_exact_uv": _bound(
+                _nbytes(o, d, h1.t, h1.wtri, h1.uv, h1.normal, h1.mat) + tab8,
+                _work_ops(w1, closest_hit=True, exact_uv=True)),
+            "cull_cast_exact_uv": _bound(
+                _nbytes(*a4[:4], h4.t, h4.wtri, h4.uv, h4.normal, h4.mat)
+                + tab6b, _work_ops(w4, closest_hit=True, exact_uv=True)),
+            # the visits instantiation: K1's walk, its hits and the counts out
+            "bvh_visit_counts": _bound(
+                _nbytes(o, d, h1.t, h1.wtri, h1.uv, h1.normal, h1.mat)
+                + 4 * o.shape[0] + tab8,
+                _work_ops(wv, closest_hit=True)),
+        }
+        for name, b in out["bounds"][k].items():
+            b["rays"] = o.shape[0] if name != "cull_cast_exact_uv" \
+                else a4[0].shape[0]
+            b["exact_updates"] = n_exact.get(name, 0)
+            print(f"bound {name} {k}: {b['bound_ms']:.5f} ms ({b['bound_by']}"
+                  f": {b['bytes']} bytes, {b['ops']} FP32 ops; "
+                  f"{b['exact_updates']} box updates with the exact branch)")
+        timing[k] = {
+            "k1x_device_ms": _device_ms(
+                lambda: ce.bvh_cast(o, d, data8, exact_uv=True)),
+            "k4x_device_ms": _device_ms(
+                lambda: cull.cull_cast(*a4, exact_uv=True)),
+            "k1v_device_ms": _device_ms(
+                lambda: ce.bvh_visit_counts(o, d, data8)),
+            "k1_box_exact_tables_device_ms": _device_ms(
+                lambda: ce.bvh_cast(o, d, data8)),
+            "k4_box_exact_tables_device_ms": _device_ms(
+                lambda: cull.cull_cast(*a4)),
+        }
+        if k == keys[0]:
+            timing[k].update({
+                "k1x_ms": _ms(lambda: ce.bvh_cast(o, d, data8, exact_uv=True)),
+                "k1x_plain_ms": _ms(lambda: ce.bvh_cast_reference(
+                    o, d, data8, exact_uv=True), reps=PLAIN_REPS),
+                "k4x_ms": _ms(lambda: cull.cull_cast(*a4, exact_uv=True)),
+                "k4x_plain_ms": _ms(lambda: cull.cull_cast_reference(
+                    *a4, exact_uv=True), reps=PLAIN_REPS),
+                "k1v_ms": _ms(lambda: ce.bvh_visit_counts(o, d, data8)),
+                "k1v_plain_ms": _ms(lambda: ce.bvh_visit_counts_reference(
+                    o, d, data8), reps=PLAIN_REPS),
+            })
+        t = timing[k]
+        print(f"device time {k} [{smi}]: K1 exact_uv {t['k1x_device_ms']:.4f}"
+              f" ms (K1 on the same tables {t['k1_box_exact_tables_device_ms']:.4f}),"
+              f" K4 exact_uv {t['k4x_device_ms']:.4f} ms (K4 "
+              f"{t['k4_box_exact_tables_device_ms']:.4f}), K1 visits "
+              f"{t['k1v_device_ms']:.4f} ms")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1078,6 +1494,16 @@ def main(argv=None) -> int:
                             t6["timing"][f"device_ms_{key}"].items()})
     bounds_at[big_key].update(t6[f"bounds_{big_key}"])
     report["terrain6"] = t6
+
+    # ---- phases 14-18: the geometry-gradient path ---------------------------
+    gg = _geomgrad(dev, smi, (o_rand, d_rand))
+    errs.update(gg["errs"])
+    launches.update({k: v for k, v in gg["launches"].items()
+                     if k not in launches})
+    for k in timing:
+        timing[k].update(gg["timing"][k])
+        bounds_at[k].update(gg["bounds"][k])
+    report["geomgrad"] = gg
     report["bounds"] = bounds_at
     report["timing"] = timing
     report["launches"] = launches
@@ -1090,6 +1516,12 @@ def main(argv=None) -> int:
         ("cull_cast", SOURCE_CULL, tpu + "pallas_engine.py:869", "k4"),
         ("cull_occlude", SOURCE_CULL, tpu + "pallas_engine.py:1102", "k5"),
         ("mxu_cast", SOURCE_MXU, tpu + "pallas_mxu.py:119", "k6"),
+        # K1's and K4's exact_uv instantiations (the branch at
+        # pallas_engine.py:559) and K1's visits_out instantiation
+        ("bvh_cast_exact_uv", SOURCE, tpu + "pallas_engine.py:916", "k1x"),
+        ("cull_cast_exact_uv", SOURCE_CULL, tpu + "pallas_engine.py:869",
+         "k4x"),
+        ("bvh_visit_counts", SOURCE, tpu + "pallas_engine.py:916", "k1v"),
     ]
     # device ms = fixed + per_m * (rays in millions), fitted to the two sizes
     for name, _, _, key in rows:

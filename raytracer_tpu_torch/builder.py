@@ -348,3 +348,45 @@ def make_camera(fov: float, unit_to_pixels: float, width: int, height: int) -> C
         global_near=np.float32(0.5 * width / unit_to_pixels / math.tan(fov)),
         unit_to_pixels=np.float32(unit_to_pixels),
     )
+
+
+def make_grid_world(side: int):
+    """A plane of ``side x side`` touching unit cubes of one material at
+    ``(x, 0, z)`` for integer ``x, z < side`` (``tests/test_accel.py``'s
+    grid), one point light above its middle and one directional light, and
+    a 640x480 camera pitched 50 degrees down at the middle.  Returns
+    ``(scene, camera, cfg)`` with numpy leaves: the fixture of instance
+    counts far above the terrains' (the LBVH walk's O(log N) visits, the
+    cull's lists of thousands of instances)."""
+    import dataclasses
+    import math
+
+    from .scene import RenderConfig, scene_render_flags
+
+    sb = SceneBuilder()
+    mat = Material(kd=np.array([0.6, 0.5, 0.3, 1.0], f32),
+                   ka=np.array([0.2, 0.2, 0.2, 1.0], f32),
+                   ks=np.array([0.2, 0.2, 0.2, 1.0], f32), alpha=8.0)
+    mb = sb.get_mesh_builder(sb.build_cube(1.0, TextureCoords(), mat))
+    for gx in range(side):
+        for gz in range(side):
+            sb.get_transformation(sb.add_trans(mb)).set_position(
+                [float(gx), 0.0, float(gz)])
+    mid = 0.5 * (side - 1)
+    sb.add_point_light([mid, 0.5 * side + 4.0, mid], [1.0, 0.95, 0.9, 1.0])
+    sb.add_directional_light([0.3, -1.0, 0.5], [0.45, 0.45, 0.55, 1.0])
+    scene = dataclasses.replace(
+        sb.finish(), ambience=np.array([0.15, 0.15, 0.15, 1.0], f32),
+        dist_atten=np.array([1.0, 0.02, 0.002], f32))
+    pitch = math.radians(50.0)
+    rot = np.array([math.sin(0.5 * pitch), 0.0, 0.0, math.cos(0.5 * pitch)],
+                   f32)
+    fwd = np.array([0.0, -math.sin(pitch), math.cos(pitch)], f32)
+    dist = 0.35 * side + 6.0
+    cam = dataclasses.replace(
+        make_camera(0.7853982, 64.0, 640, 480),
+        pos=(np.array([mid, 0.0, mid], f32) - dist * fwd).astype(f32),
+        rot=rot)
+    cfg = RenderConfig(width=640, height=480, recurse_depth=0,
+                       **scene_render_flags(scene))
+    return scene, cam, cfg

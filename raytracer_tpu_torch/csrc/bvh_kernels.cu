@@ -39,6 +39,14 @@
 //   where they were a compare-compare-select: ten in every slab test.
 // K2 and K3 keep the per-thread walk, with skip_next in closed form.
 //
+// K1 comes in three instantiations: the frame path's <false, false>;
+// <true, false>, kExactUv (the JAX kernel's exact_uv=True,
+// cfg.edge_aware_grads: the box fast path resolves the true triangle of the
+// hit face and its barycentrics, two barycentric evaluations on a hit face;
+// bvh_walk.cuh box_exact_uv); and <false, true>, kVisits (visits_out: the
+// nodes whose boxes the walk tests, per ray, 1 + 2 a step; the JAX kernel
+// counts per tile).
+//
 // Not taken (measured with probe_kernels.py, PERF.md): the top of the tree
 // in shared memory with a fixed crew of blocks (slower at 1080p), box faces
 // looked up once at the end (no gain, and spills with the pair walk), a
@@ -77,22 +85,25 @@ __device__ __forceinline__ NodeGate node_gate(const Tables& tb, int total,
   return g;
 }
 
+template <bool kExactUv, bool kVisits>
 __global__ void __launch_bounds__(kThreads)
 bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                 int n_rays, Tables tb, float* __restrict__ t_out,
                 int* __restrict__ tri_out, float* __restrict__ uv_out,
-                float* __restrict__ n_out, int* __restrict__ mat_out) {
+                float* __restrict__ n_out, int* __restrict__ mat_out,
+                int* __restrict__ visits_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const Ray ray = load_ray(ro, rd, r);
   Best best = miss();
   const int total = 2 * tb.n_leaves - 1;
+  int visits = 1;  // kVisits: node boxes tested, the root's first
 
   // a leaf's own gate under the current best, then its instance
   auto leaf = [&](int u, const NodeGate& g) {
     if (g.ok && g.tmin < best.t) {
       const int i = tb.ordering[total - u];
-      if (i >= 0) intersect_instance(i, g.s, ray, tb, best);
+      if (i >= 0) intersect_instance<kExactUv>(i, g.s, ray, tb, best);
     }
   };
 
@@ -111,6 +122,7 @@ bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     const int c = 2 * v;
     const NodeGate g0 = node_gate(tb, total, c, ray);
     const NodeGate g1 = node_gate(tb, total, c + 1, ray);
+    if (kVisits) visits += 2;
     if (c >= tb.n_leaves) {  // two leaves, in preorder
       leaf(c, g0);
       leaf(c + 1, g1);
@@ -133,6 +145,7 @@ bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     depth = d;
   }
   write_best(best, r, t_out, tri_out, uv_out, n_out, mat_out);
+  if (kVisits) visits_out[r] = visits;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -215,17 +228,32 @@ bvh_occlude_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+template <bool kExactUv, bool kVisits>
+inline void launch_bvh_cast(const float* ro, const float* rd, int n_rays,
+                            const Tables& tb, float* t, int* tri, float* uv,
+                            float* normal, int* mat, int* visits,
+                            cudaStream_t stream) {
+  bvh_cast_kernel<kExactUv, kVisits>
+      <<<blocks_for(n_rays), kThreads, 0, stream>>>(
+          ro, rd, n_rays, tb, t, tri, uv, normal, mat, visits);
+}
+
 }  // namespace rt
 
 // Plain C entry points for ctypes.  Each launches on the given stream,
 // allocates nothing, and returns cudaGetLastError() (0 on success).
 
+// K1: exact_uv picks the exact_uv instantiation; visits (int [n_rays]) the
+// one that writes the visit counts, when it is not null.  The walk reads
+// only the best t, which exact_uv leaves as it is, so the counts take no
+// exact_uv variant.
 extern "C" int rt_bvh_cast(const void* ro, const void* rd, int n_rays,
                            const void* nodes, const void* ordering,
                            int n_leaves, const void* inst_f,
                            const void* inst_i, const void* tmpl, void* t,
                            void* tri, void* uv, void* normal, void* mat,
-                           int device, void* stream) {
+                           int exact_uv, void* visits, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_leaves < 1 || (n_leaves & (n_leaves - 1)))
@@ -235,12 +263,14 @@ extern "C" int rt_bvh_cast(const void* ro, const void* rd, int n_rays,
                       static_cast<const float*>(inst_f),
                       static_cast<const int*>(inst_i),
                       static_cast<const float*>(tmpl)};
-  rt::bvh_cast_kernel<<<rt::blocks_for(n_rays), rt::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ro), static_cast<const float*>(rd), n_rays,
-      tb, static_cast<float*>(t), static_cast<int*>(tri),
-      static_cast<float*>(uv), static_cast<float*>(normal),
-      static_cast<int*>(mat));
+  const auto launch = visits ? rt::launch_bvh_cast<false, true>
+      : exact_uv             ? rt::launch_bvh_cast<true, false>
+                             : rt::launch_bvh_cast<false, false>;
+  launch(static_cast<const float*>(ro), static_cast<const float*>(rd), n_rays,
+         tb, static_cast<float*>(t), static_cast<int*>(tri),
+         static_cast<float*>(uv), static_cast<float*>(normal),
+         static_cast<int*>(mat), static_cast<int*>(visits),
+         static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

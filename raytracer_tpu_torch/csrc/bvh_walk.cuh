@@ -29,6 +29,7 @@ constexpr int II_VALID = 3;
 constexpr int II_IS_BOX = 4;
 constexpr int II_MAT = 5;
 constexpr int II_FACE_WTRI = 8;
+constexpr int II_FACE_WTRI2 = 14;
 constexpr int II_WIDTH = 24;
 
 constexpr int TF_A = 0;
@@ -45,6 +46,10 @@ constexpr int TF_WIDTH = 32;
 constexpr int NODE_WIDTH = 8;  // min xyz, max xyz, valid, pad
 
 constexpr float THRESHOLD = 1e-5f;
+// exact_uv: a face triangle contains the hit when its signed barycentrics
+// u, v >= -BARY_EPS and u + v <= BARY_HI (= 1 + BARY_EPS in f32)
+constexpr float BARY_EPS = 1e-5f;
+constexpr float BARY_HI = 1.00001f;
 constexpr float F32_BIG = 3.0e38f;
 constexpr float F32_NEG_BIG = -3.0e38f;
 
@@ -185,12 +190,12 @@ __device__ __forceinline__ void write_best(const Best& best, int r,
 
 // _box_face_hit: the slab entry (or, from inside, exit) face of an
 // identity-rotation box is its closest triangle hit.  Ties pick x, y, z;
-// side_hi = (d >= 0) XOR is_entry.
+// side_hi = (d >= 0) XOR is_entry; face = axis * 2 + side_hi.
 __device__ __forceinline__ bool box_face_hit(const Slab& s, const Ray& r,
                                              const float* __restrict__ f,
                                              const int* __restrict__ ii,
                                              float& t_hit, int& wtri,
-                                             float n[3]) {
+                                             int& face, float n[3]) {
   const float t_entry = slab_entry(s);
   const float t_exit = slab_exit(s);
   const bool hit_box = t_entry <= t_exit && s.inside;
@@ -202,7 +207,7 @@ __device__ __forceinline__ bool box_face_hit(const Slab& s, const Ray& r,
   const bool ax_y = !ax_x && ty == t_hit;
   const float dsel = ax_x ? r.d[0] : (ax_y ? r.d[1] : r.d[2]);
   const bool side_hi = (dsel >= 0.0f) != is_entry;
-  const int face = (ax_x ? 0 : (ax_y ? 1 : 2)) * 2 + (side_hi ? 1 : 0);
+  face = (ax_x ? 0 : (ax_y ? 1 : 2)) * 2 + (side_hi ? 1 : 0);
   wtri = ii[II_FACE_WTRI + face];
 #pragma unroll
   for (int k = 0; k < 3; ++k) n[k] = f[IF_FNRM + 3 * face + k];
@@ -267,8 +272,59 @@ __device__ __forceinline__ void to_local(const float* __restrict__ f,
   quat_rotate(q, r.d, ld);
 }
 
+// Signed barycentrics (u: the b weight, v: the c weight) of the
+// instance-local point h against template triangle row: ((h - a) x (c -
+// a)).n / |n_raw| and ((b - a) x (h - a)).n / |n_raw|, n the unit plane
+// normal -- the exact_uv branch's bary() of _intersect_instance, and the
+// reconstruction the reparam rule differentiates (cast_vjp.py).
+__device__ __forceinline__ void signed_bary(const float* __restrict__ row,
+                                            const float h[3], float& u,
+                                            float& v) {
+  const float* a = row + TF_A;
+  const float* b = row + TF_B;
+  const float* c = row + TF_C;
+  const float* n = row + TF_PNU;
+  const float inv = 1.0f / nan_max(row[TF_AREA], 1e-20f);
+  const float pax = h[0] - a[0], pay = h[1] - a[1], paz = h[2] - a[2];
+  const float cax = c[0] - a[0], cay = c[1] - a[1], caz = c[2] - a[2];
+  const float bax = b[0] - a[0], bay = b[1] - a[1], baz = b[2] - a[2];
+  u = ((pay * caz - paz * cay) * n[0] + (paz * cax - pax * caz) * n[1] +
+       (pax * cay - pay * cax) * n[2]) * inv;
+  v = ((bay * paz - baz * pay) * n[0] + (baz * pax - bax * paz) * n[1] +
+       (bax * pay - bay * pax) * n[2]) * inv;
+}
+
+// The exact_uv branch of the box fast path: the hit face's two triangles
+// (II_FACE_WTRI, II_FACE_WTRI2) from their template rows, the local hit
+// point o + t d - pos (identity rotation), the first triangle unless only
+// the second contains the hit (eps BARY_EPS), and its true (u, v).
+__device__ __forceinline__ void box_exact_uv(const float* __restrict__ f,
+                                             const int* __restrict__ ii,
+                                             const float* __restrict__ tmpl,
+                                             const Ray& r, float t_hit,
+                                             int face, Best& best) {
+  float h[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) h[k] = r.o[k] + t_hit * r.d[k] - f[IF_POS + k];
+  const int base = ii[II_TMPL_START] - ii[II_WTRI_START];
+  const int w1 = ii[II_FACE_WTRI + face];
+  const int w2 = ii[II_FACE_WTRI2 + face];
+  float u1, v1, u2, v2;
+  signed_bary(tmpl + (w1 + base) * TF_WIDTH, h, u1, v1);
+  signed_bary(tmpl + (w2 + base) * TF_WIDTH, h, u2, v2);
+  const bool in1 = u1 >= -BARY_EPS && v1 >= -BARY_EPS && u1 + v1 <= BARY_HI;
+  const bool in2 = u2 >= -BARY_EPS && v2 >= -BARY_EPS && u2 + v2 <= BARY_HI;
+  const bool use2 = !in1 && in2;
+  best.u = use2 ? u2 : u1;
+  best.v = use2 ? v2 : v1;
+  best.tri = use2 ? w2 : w1;
+}
+
 // _intersect_instance: closest-hit update of instance i (its leaf box test
-// already passed for this ray).
+// already passed for this ray).  kExactUv: the box fast path resolves the
+// true triangle of the hit face and its barycentrics (box_exact_uv) where
+// the plain fast path writes the face's first triangle and uv (1/3, 1/3).
+template <bool kExactUv>
 __device__ __forceinline__ void intersect_instance(int i, const Slab& s,
                                                    const Ray& r,
                                                    const Tables& tb,
@@ -277,8 +333,8 @@ __device__ __forceinline__ void intersect_instance(int i, const Slab& s,
   const int* ii = tb.inst_i + i * II_WIDTH;
   if (ii[II_IS_BOX] > 0) {
     float t_hit, n[3];
-    int wtri;
-    if (box_face_hit(s, r, f, ii, t_hit, wtri, n) && t_hit < best.t) {
+    int wtri, face;
+    if (box_face_hit(s, r, f, ii, t_hit, wtri, face, n) && t_hit < best.t) {
       best.t = t_hit;
       best.tri = wtri;
       best.u = 1.0f / 3.0f;
@@ -286,6 +342,7 @@ __device__ __forceinline__ void intersect_instance(int i, const Slab& s,
 #pragma unroll
       for (int k = 0; k < 3; ++k) best.n[k] = n[k];
       best.mat = ii[II_MAT];
+      if (kExactUv) box_exact_uv(f, ii, tb.tmpl, r, t_hit, face, best);
     }
     return;
   }

@@ -5,11 +5,12 @@ port's ``Materials``/``Lights`` dataclasses and camera tensors, each leaf a
 tensor with ``requires_grad``; gradients come back in the same structure.
 Gradients through shading, attenuation and the hit time are exact
 autodiff; visibility (which triangle is hit, shadow masks) is piecewise
-constant, through the rules of ``render/cast_vjp.py``.
+constant, through the rules of ``render/cast_vjp.py``.  Vertex positions
+(``include_vertices``) train under ``cfg.edge_aware_grads``: the reparam
+cast rule and the silhouette band carry their gradient.
 
-Not ported: vertex gradients (``include_vertices``, which need the
-edge-aware reparameterized cast) and the spp gradient accumulation of
-``make_spp_grad_fn``; both raise.
+Not ported: the spp gradient accumulation of ``make_spp_grad_fn``, which
+raises.
 """
 
 from __future__ import annotations
@@ -33,24 +34,24 @@ def trainable_params(scene: Scene, camera: Camera,
                      include_camera: bool = True,
                      include_vertices: bool = False) -> Dict[str, Any]:
     """The optimizable parameters of a scene and camera, as fresh leaves
-    with ``requires_grad``."""
-    if include_vertices:
-        raise NotImplementedError(
-            "vertex gradients are not ported (ROADMAP.md Queue 1 item 7: "
-            "edge-aware gradients with K1's exact_uv branch)")
+    with ``requires_grad``; ``include_vertices`` adds the mesh-local vertex
+    positions (``verts``), whose gradients need ``cfg.edge_aware_grads``."""
     params: Dict[str, Any] = {"materials": scene.materials}
     if include_lights:
         params["lights"] = scene.lights
     if include_camera:
         params["cam_pos"] = camera.pos
         params["cam_rot"] = camera.rot
+    if include_vertices:
+        params["verts"] = scene.verts
     return tree.tree_map(_trainable, params)
 
 
 def merge_params(scene: Scene, camera: Camera, params: Dict[str, Any]
                  ) -> Tuple[Scene, Camera]:
     """Rebuild ``(scene, camera)`` with ``params`` substituted in."""
-    scene_kw = {k: params[k] for k in ("materials", "lights") if k in params}
+    scene_kw = {k: params[k] for k in ("materials", "lights", "verts")
+                if k in params}
     if scene_kw:
         scene = dataclasses.replace(scene, **scene_kw)
     cam_kw = {f: params[k] for k, f in (("cam_pos", "pos"),

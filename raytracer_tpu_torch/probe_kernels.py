@@ -114,7 +114,7 @@ def device_ms(fn, reps=10):
                 c = seen.setdefault(e["name"], [0, 0.0])
                 c[0] += 1
                 c[1] += e["dur"] / 1e3
-        ours = [c[0] for k, c in seen.items() if k.startswith("rt::")]
+        ours = [c[0] for k, c in seen.items() if "rt::" in k]
         if seen:
             calls = min(ours) if ours else reps  # plain torch: no kernel of ours
             by_name = {k[:80]: c[1] / c[0] * max(1, round(c[0] / calls))
@@ -177,7 +177,8 @@ def _k1_walks(ce, ro, rd, data):
             super().__init__(*args)
             self.go = Voted()
 
-    work = torch.zeros(R, 4, dtype=torch.int64, device=ro.device)
+    work = torch.zeros(R, len(ce.WORK_COLUMNS), dtype=torch.int64,
+                       device=ro.device)
     saved = ce._WalkVisits
     ce._WalkVisits = Visits
     try:

@@ -9,6 +9,10 @@ instances) lives in ``cull.py`` and shares this module's tables and helpers:
 * K1 ``_bvh_cast_kernel`` -> :func:`bvh_cast` / :func:`bvh_cast_reference`:
   closest hit through the stackless implicit-heap LBVH walk; leaves run the
   box fast path (identity-rotation box meshes) or the template triangle loop.
+  ``exact_uv=True`` (``cfg.edge_aware_grads``) resolves on the box fast path
+  the true triangle of the hit face and its barycentrics; its
+  ``visits_out`` is :func:`bvh_visit_counts`, whose plain version
+  replays the kernel's own walk (:func:`k1_walk_replay`).
 * K2 ``_bvh_occlude2_kernel`` -> :func:`bvh_occlude2` /
   :func:`bvh_occlude2_reference`: both shadow queries of a two-light round
   in one walk.
@@ -41,7 +45,7 @@ from .. import raymath as rm
 from ..accel import build_lbvh
 from ..scene import RenderConfig, Scene
 from .cast import Hit
-from .cast_vjp import cast_detached, occlude2_detached, occlude_detached
+from .cast_vjp import closest_hit, occlude2_detached, occlude_detached
 from .geometry import WorldGeometry
 
 F32_NEG_BIG = -3.0e38
@@ -67,6 +71,10 @@ _II_MAT = 5         # material id (box meshes are single-material)
 _II_FACE_WTRI = 8   # 8:14 first world-tri id per face
 _II_FACE_WTRI2 = 14  # 14:20 second world-tri id per face
 _II_WIDTH = 24
+
+# exact_uv: a face triangle contains the hit when its signed barycentrics
+# are >= -BARY_EPS and sum to <= 1 + BARY_EPS (in f32, 1.00001)
+BARY_EPS = 1e-5
 
 # template row layout (per mesh-local triangle)
 _TF_A = 0      # 0:3 vertex a
@@ -192,11 +200,15 @@ def _detect_box_meshes(scene: Scene):
 
 
 def build_tables(scene: Scene, geom: WorldGeometry, *,
-                 exact_uv: bool = False) -> SceneTables:
+                 exact_uv: bool = False,
+                 box_exact_uv: bool = False) -> SceneTables:
     """The kernels' instance and template tables (``pallas_engine.
-    build_tables``).  ``exact_uv=True`` zeroes ``is_box`` so every instance
-    takes the template loop; the JAX package's ``texture_mapping`` and
-    ``box_exact_uv`` variants are not ported."""
+    build_tables``).  ``exact_uv=True`` without ``box_exact_uv`` zeroes
+    ``is_box`` so every instance takes the template loop; with
+    ``box_exact_uv`` the box fast path stays, and the kernels' ``exact_uv``
+    branch resolves the hit face's triangle from the ``_II_FACE_WTRI`` /
+    ``_II_FACE_WTRI2`` columns (filled either way).  The JAX package's
+    ``texture_mapping`` variant is not ported."""
     n = scene.inst_pos.shape[0]
     dev = scene.inst_pos.device
     i32 = torch.int32
@@ -228,7 +240,7 @@ def build_tables(scene: Scene, geom: WorldGeometry, *,
     inst_i32[:, _II_VALID] = 1
 
     is_box_m, mat_m, face_tri_m, _, face_tri2_m = _detect_box_meshes(scene)
-    if exact_uv:
+    if exact_uv and not box_exact_uv:
         is_box_m = torch.zeros_like(is_box_m)
     ident_rot = ((torch.abs(q[:, 0]) < 1e-6) & (torch.abs(q[:, 1]) < 1e-6)
                  & (torch.abs(q[:, 2]) < 1e-6))
@@ -278,23 +290,21 @@ def _use_walk(cfg: RenderConfig, n_inst: int) -> bool:
 def prepare_cast(scene: Scene, geom: WorldGeometry,
                  cfg: RenderConfig) -> CastData:
     """The scalar kernels' run-time data (``prepare_pallas_cast``): the
-    tables, plus the LBVH nodes when ``_use_walk`` picks the walk (the cull
-    reads the tables only).  Runs under ``no_grad``, the counterpart of the
+    tables (with ``box_exact_uv`` under ``edge_aware_grads``), plus the LBVH
+    nodes when ``_use_walk`` picks the walk (the cull reads the tables
+    only).  Runs under ``no_grad``, the counterpart of the
     JAX package's ``stop_gradient(scene)``: the tables are written in place
     and never join a graph, since the casts' gradients come from their VJP
     rules.  The MXU kernel has its own data (``mxu.prepare_mxu_cast``)."""
     if cfg.pallas_kernel != "scalar":
         raise ValueError(f"prepare_cast builds the scalar kernels' data, not "
                          f"pallas_kernel={cfg.pallas_kernel!r}")
-    if cfg.edge_aware_grads:
-        raise NotImplementedError(
-            "edge_aware_grads is not ported (ROADMAP.md Queue 1 item 7: "
-            "edge-aware gradients with K1's exact_uv branch)")
     if cfg.texture_mapping:
         raise NotImplementedError(
             "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
             "ops surface and atlas sampling)")
-    tables = build_tables(scene, geom)
+    tables = build_tables(scene, geom, exact_uv=cfg.edge_aware_grads,
+                          box_exact_uv=cfg.edge_aware_grads)
     if not _use_walk(cfg, scene.inst_pos.shape[0]):
         return CastData(tables=tables)
     lbvh = build_lbvh(geom.aabb_min, geom.aabb_max)
@@ -360,11 +370,12 @@ def _quat_rotate_tile(q, v):
     return rx, ry, rz
 
 
-def _box_face_hit(tns, tfs, inside, d, inst_f, inst_i):
+def _box_face_hit(tns, tfs, inside, d, inst_f, inst_i, with_face=False):
     """Closest hit of an axis-aligned box from its slab times: the entry
     face, or the exit face from inside.  ``inst_f``/``inst_i`` are one
     instance's rows or one row per ray.  Returns ``(ok, t, wtri, normal
-    [R,3])``; ties pick x, then y, then z."""
+    [R,3])``, and the face ``axis * 2 + side_hi`` after them when
+    ``with_face``; ties pick x, then y, then z."""
     t_entry = _max3(tns)
     t_exit = _min3(tfs)
     hit_box = (t_entry <= t_exit) & inside
@@ -383,10 +394,61 @@ def _box_face_hit(tns, tfs, inside, d, inst_f, inst_i):
     face_w = inst_i[..., _II_FACE_WTRI:_II_FACE_WTRI + 6]
     fnrm = inst_f[..., _IF_FNRM:_IF_FNRM + 18]
     if inst_i.dim() == 1:  # one instance for every ray
-        return ok, t_hit, face_w[face], fnrm.reshape(6, 3)[face]
-    rows = torch.arange(face.shape[0], device=face.device)
-    return (ok, t_hit, face_w[rows, face],
-            fnrm.reshape(-1, 6, 3)[rows, face])
+        out = ok, t_hit, face_w[face], fnrm.reshape(6, 3)[face]
+    else:
+        rows = torch.arange(face.shape[0], device=face.device)
+        out = (ok, t_hit, face_w[rows, face],
+               fnrm.reshape(-1, 6, 3)[rows, face])
+    return out + (face,) if with_face else out
+
+
+def _signed_bary(row, h):
+    """Signed barycentrics ``(u, v)`` (the b and c weights) of the
+    instance-local points ``h`` against template rows ``[R, 32]``:
+    ``((h - a) x (c - a)).n / |n_raw|`` and ``((b - a) x (h - a)).n /
+    |n_raw|`` -- ``bary`` of ``pallas_engine._intersect_instance``."""
+    a = [row[:, _TF_A + k] for k in range(3)]
+    b = [row[:, _TF_B + k] for k in range(3)]
+    c = [row[:, _TF_C + k] for k in range(3)]
+    n = [row[:, _TF_PNU + k] for k in range(3)]
+    area = row[:, _TF_AREA]
+    inv = 1.0 / torch.maximum(area, area.new_tensor(1e-20))
+    pa = [h[k] - a[k] for k in range(3)]
+    ca = [c[k] - a[k] for k in range(3)]
+    ba = [b[k] - a[k] for k in range(3)]
+    u = ((pa[1] * ca[2] - pa[2] * ca[1]) * n[0]
+         + (pa[2] * ca[0] - pa[0] * ca[2]) * n[1]
+         + (pa[0] * ca[1] - pa[1] * ca[0]) * n[2]) * inv
+    v = ((ba[1] * pa[2] - ba[2] * pa[1]) * n[0]
+         + (ba[2] * pa[0] - ba[0] * pa[2]) * n[1]
+         + (ba[0] * pa[1] - ba[1] * pa[0]) * n[2]) * inv
+    return u, v
+
+
+def _box_exact_uv(inst_f, inst_i, tmpl, o, d, t_hit, face):
+    """The ``exact_uv`` branch of the box fast path for rays hitting
+    ``face`` at ``t_hit`` (one instance's rows, or one row per ray): the
+    local hit point ``o + t d - pos``, the signed barycentrics against the
+    face's two triangles, and the first unless only the second contains
+    the hit.  Returns ``(u, v, wtri)`` per ray."""
+    h = [o[k] + t_hit * d[k] - inst_f[..., _IF_POS + k] for k in range(3)]
+    base = inst_i[..., _II_TMPL_START] - inst_i[..., _II_WTRI_START]
+    w1 = inst_i[..., _II_FACE_WTRI:_II_FACE_WTRI + 6]
+    w2 = inst_i[..., _II_FACE_WTRI2:_II_FACE_WTRI2 + 6]
+    if inst_i.dim() == 1:
+        w1, w2 = w1[face], w2[face]
+    else:
+        rows = torch.arange(face.shape[0], device=face.device)
+        w1, w2 = w1[rows, face], w2[rows, face]
+    last = tmpl.shape[0] - 1
+    u1, v1 = _signed_bary(tmpl[torch.clamp(w1 + base, 0, last).long()], h)
+    u2, v2 = _signed_bary(tmpl[torch.clamp(w2 + base, 0, last).long()], h)
+    hi = 1.0 + BARY_EPS
+    in1 = (u1 >= -BARY_EPS) & (v1 >= -BARY_EPS) & (u1 + v1 <= hi)
+    in2 = (u2 >= -BARY_EPS) & (v2 >= -BARY_EPS) & (u2 + v2 <= hi)
+    use2 = ~in1 & in2
+    return (torch.where(use2, u2, u1), torch.where(use2, v2, v1),
+            torch.where(use2, w2, w1))
 
 
 def _template_tri(row, lo, ld):
@@ -443,11 +505,13 @@ def _leaves(data: CastData):
 
 
 # Per-ray work counts the plain versions add into when handed a ``work``
-# tensor (int64 ``[R, 4]``), one column each: slab tests (tree nodes or
-# instance boxes), box-face evaluations, template instances entered (the ray
-# taken into the instance frame), template triangle tests.  They are what
-# the kernels do for these rays; chip_smoke.py reads them for the bounds.
-WORK_COLUMNS = ("slab", "box", "inst", "tri")
+# tensor (int64 ``[R, len(WORK_COLUMNS)]``), one column each: slab tests
+# (tree nodes or instance boxes), box-face evaluations, template instances
+# entered (the ray taken into the instance frame), template triangle tests,
+# and box-face hits that took the closest-hit update, each of which runs
+# the exact_uv branch's two barycentric evaluations under ``exact_uv``.  They are what the kernels do
+# for these rays; chip_smoke.py reads them for the bounds.
+WORK_COLUMNS = ("slab", "box", "inst", "tri", "exact")
 
 
 def _slab_vote(row, o, inv, par):
@@ -498,10 +562,11 @@ class _WalkVisits:
 
 
 def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
-                       data: CastData, *,
+                       data: CastData, *, exact_uv: bool = False,
                        work: Optional[torch.Tensor] = None) -> Hit:
-    """Plain version of K1: closest hit for rays ``[R, 3]``.  ``work``:
-    see ``WORK_COLUMNS``."""
+    """Plain version of K1: closest hit for rays ``[R, 3]``; ``exact_uv``:
+    the box fast path's true triangle and barycentrics.  ``work``: see
+    ``WORK_COLUMNS``."""
     R = ro.shape[0]
     dev = ro.device
     f32 = torch.float32
@@ -542,15 +607,23 @@ def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
         if walk:
             work[:, 1 if is_box[i] else 2] += seen & gate
         if is_box[i]:
-            ok, t_hit, wtri, nrm = _box_face_hit(tns, tfs, inside, d,
-                                                 inst_f[i], inst_i[i])
+            ok, t_hit, wtri, nrm, face = _box_face_hit(
+                tns, tfs, inside, d, inst_f[i], inst_i[i], with_face=True)
             ok = gate & ok & (t_hit < bt)
+            if walk:
+                work[:, 4] += seen & ok
             bt = torch.where(ok, t_hit, bt)
             btri = torch.where(ok, wtri, btri)
             bu = torch.where(ok, 1.0 / 3.0, bu)
             bv = torch.where(ok, 1.0 / 3.0, bv)
             bn = [torch.where(ok, nrm[:, k], bn[k]) for k in range(3)]
             bmat = torch.where(ok, inst_i[i, _II_MAT], bmat)
+            if exact_uv:
+                u, v, w = _box_exact_uv(inst_f[i], inst_i[i], tmpl, o, d,
+                                        t_hit, face)
+                bu = torch.where(ok, u, bu)
+                bv = torch.where(ok, v, bv)
+                btri = torch.where(ok, w, btri)
             continue
         q, lo, ld = _to_local(inst_f[i], o, d)
         qc = (-q[0], -q[1], -q[2], q[3])
@@ -582,6 +655,85 @@ def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
         normal=torch.stack([bn[k] * ninv for k in range(3)], dim=-1),
         mat=bmat,
     )
+
+
+def k1_walk_replay(ro: torch.Tensor, rd: torch.Tensor, data: CastData, *,
+                   exact_uv: bool = False):
+    """K1's walk as its kernel runs it (``csrc/bvh_kernels.cu``), every ray
+    one step at a time: a step tests both children of the node the ray
+    entered; two leaves go through their own gates in preorder; of two
+    inner children that both vote, the left is entered and the right's
+    vote is kept for later; with nothing to enter the ray pops to the
+    deepest right child kept.  Leaf updates are the plain versions'
+    (``cull._closest_update``).  Returns ``(Hit, visits, stale)``:
+    ``visits`` [R] the node boxes each ray's walk tests (the kernel's
+    ``visits_out``: the root, then two a step), ``stale`` [R] the pops to a
+    kept right child whose own vote fails when the walk gets there (each
+    costs the walk two tests that the per-thread walk of ``_WalkVisits``
+    does not make, so ``visits = _WalkVisits + 2 stale``)."""
+    from .cull import _Best, _closest_update
+
+    n, tab = data.n_leaves, data.tables
+    total = 2 * n - 1
+    R = ro.shape[0]
+    o = [ro[:, k] for k in range(3)]
+    d = [rd[:, k] for k in range(3)]
+    par, inv = _ray_recips(rd)
+    max_tris = int(tab.inst_i32[:, _II_TRI_COUNT].max())
+    any_tmpl = bool((tab.inst_i32[:, _II_IS_BOX] == 0).any())
+    best = _Best(R, ro.device)
+
+    def gate(u):
+        row = data.nodes[(total - u).clamp(0, total - 1)]
+        tns, tfs, inside = _slab_terms(row, o, inv, par)
+        tmin, tmax = _max3(tns), _min3(tfs)
+        ok = ((tmin <= tmax) & (tmax >= rm.THRESHOLD) & inside
+              & (row[:, 6] > 0.0))
+        return tns, tfs, inside, tmin, ok
+
+    def leaf(u, g, lanes):
+        tns, tfs, inside, tmin, ok = g
+        inst = data.ordering[(total - u).clamp(0, n - 1)].long()
+        go = lanes & ok & (tmin < best.t) & (inst >= 0)
+        i = inst.clamp(min=0)
+        _closest_update(best, tab.inst_f32[i], tab.inst_i32[i], go, tns, tfs,
+                        inside, o, d, tab.tmpl, max_tris, any_tmpl,
+                        exact_uv=exact_uv)
+
+    one = torch.ones(R, dtype=torch.long, device=ro.device)
+    g = gate(one)
+    visits = one.clone()
+    stale = torch.zeros_like(one)
+    if n == 1:
+        leaf(one, g, one > 0)
+        return best.hit(), visits, stale
+    v = torch.where(g[4] & (g[3] < best.t), one, 0)
+    depth = torch.zeros_like(one)
+    pend = torch.zeros_like(one)
+    while bool((v > 0).any()):
+        live = v > 0
+        visits += 2 * live
+        c = 2 * v
+        g0, g1 = gate(c), gate(c + 1)
+        leaves = live & (c >= n)
+        leaf(c, g0, leaves)
+        leaf(c + 1, g1, leaves)
+        inner = live & ~leaves
+        go0 = inner & g0[4] & (g0[3] < best.t)
+        go1 = inner & g1[4] & (g1[3] < best.t)
+        down = go0 | go1
+        pend = torch.where(go0 & go1, pend | (1 << (depth + 1)), pend)
+        pop = live & ~down & (pend > 0)
+        # the deepest kept right child: pend's highest bit (frexp is exact)
+        top = torch.frexp(pend.clamp(min=1).double()).exponent.long() - 1
+        right = (v >> (depth - top).clamp(min=0)) | 1
+        rg = gate(right)  # the kept vote, taken again under today's best
+        stale += pop & ~(rg[4] & (rg[3] < best.t))
+        v = torch.where(down, torch.where(go0, c, c + 1),
+                        torch.where(pop, right, torch.where(live, 0, v)))
+        depth = torch.where(down, depth + 1, torch.where(pop, top, depth))
+        pend = torch.where(pop, pend & ~(1 << top), pend)
+    return best.hit(), visits, stale
 
 
 def _occlude_reference(queries, data: CastData,
@@ -717,23 +869,13 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def bvh_cast(ro: torch.Tensor, rd: torch.Tensor, data: CastData, *,
-             exact_uv: bool = False) -> Hit:
-    """K1 (``_bvh_cast_kernel``): closest hit of rays ``[R, 3]`` f32.
-    The kernel's ``exact_uv`` branch (true triangle and barycentrics on the
-    box fast path) is not ported and raises."""
-    if exact_uv:
-        raise NotImplementedError(
-            "bvh_cast(exact_uv=True) is not ported (ROADMAP.md Queue 1 item "
-            "7: edge-aware gradients with K1's exact_uv branch)")
-    R = ro.shape[0]
-    _check("ro", ro, torch.float32, (R, 3), ro.device)
-    _check("rd", rd, torch.float32, (R, 3), ro.device)
-    if _device_kind(ro) == "cpu":
-        return bvh_cast_reference(ro, rd, data)
-    _check_data(data, ro.device)
+def _k1(ro, rd, data: CastData, exact_uv: bool, visits):
+    """Launches K1 on CUDA rays; ``visits``: an int32 ``[R]`` to count into,
+    or None.  Returns the Hit."""
     from . import kernels
 
+    R = ro.shape[0]
+    _check_data(data, ro.device)
     dev = ro.device
     t = torch.empty(R, dtype=torch.float32, device=dev)
     wtri = torch.empty(R, dtype=torch.int32, device=dev)
@@ -746,14 +888,54 @@ def bvh_cast(ro: torch.Tensor, rd: torch.Tensor, data: CastData, *,
             _ptr(ro), _ptr(rd), R, _ptr(data.nodes), _ptr(data.ordering),
             data.n_leaves, _ptr(tab.inst_f32), _ptr(tab.inst_i32),
             _ptr(tab.tmpl), _ptr(t), _ptr(wtri), _ptr(uv), _ptr(normal),
-            _ptr(mat), dev.index, kernels.stream_handle(dev))
+            _ptr(mat), int(exact_uv), None if visits is None else _ptr(visits),
+            dev.index, kernels.stream_handle(dev))
         _raise_on(err, "bvh_cast")
-        bvh_cast.launches += 1
     return Hit(valid=torch.isfinite(t), t=t, wtri=wtri, uv=uv,
                normal=normal, mat=mat)
 
 
-bvh_cast.launches = 0
+def _check_rays(ro, rd):
+    R = ro.shape[0]
+    _check("ro", ro, torch.float32, (R, 3), ro.device)
+    _check("rd", rd, torch.float32, (R, 3), ro.device)
+    return _device_kind(ro)
+
+
+def bvh_cast(ro: torch.Tensor, rd: torch.Tensor, data: CastData, *,
+             exact_uv: bool = False) -> Hit:
+    """K1 (``_bvh_cast_kernel``): closest hit of rays ``[R, 3]`` f32;
+    ``exact_uv`` takes the kernel's exact_uv instantiation (the box fast
+    path's true triangle and barycentrics)."""
+    if _check_rays(ro, rd) == "cpu":
+        return bvh_cast_reference(ro, rd, data, exact_uv=exact_uv)
+    hit = _k1(ro, rd, data, exact_uv, None)
+    if ro.shape[0] > 0:
+        bvh_cast.launches += 1
+        bvh_cast.exact_uv_launches += int(exact_uv)
+    return hit
+
+
+bvh_cast.launches = 0  # every launch of K1's closest hit
+bvh_cast.exact_uv_launches = 0  # of its exact_uv instantiation
+
+
+def bvh_visit_counts(ro: torch.Tensor, rd: torch.Tensor,
+                     data: CastData) -> torch.Tensor:
+    """K1's ``visits_out`` (``cast.visit_counts`` of the JAX package, which
+    counts per tile): int32 ``[R]``, the node boxes each ray's walk tests,
+    from K1's visits instantiation (its hits are dropped).  On CPU tensors
+    the plain version (:func:`bvh_visit_counts_reference`)."""
+    if _check_rays(ro, rd) == "cpu":
+        return bvh_visit_counts_reference(ro, rd, data)
+    visits = torch.empty(ro.shape[0], dtype=torch.int32, device=ro.device)
+    _k1(ro, rd, data, False, visits)
+    if ro.shape[0] > 0:
+        bvh_visit_counts.launches += 1
+    return visits
+
+
+bvh_visit_counts.launches = 0
 
 
 def bvh_occlude(ro, rd, max_t, data: CastData):
@@ -816,28 +998,41 @@ def bvh_occlude2(o1, d1, mt1, o2, d2, mt2, data: CastData):
 bvh_occlude2.launches = 0
 
 
-def make_cuda_cast(data: CastData, cfg: RenderConfig):
+def bvh_visit_counts_reference(ro, rd, data: CastData) -> torch.Tensor:
+    """The plain version of K1's visit counts: int32 ``[R]``, the node
+    boxes K1's walk tests (:func:`k1_walk_replay`)."""
+    return k1_walk_replay(ro, rd, data)[1].to(torch.int32)
+
+
+def make_cuda_cast(data: CastData, cfg: RenderConfig,
+                   geo: Optional[torch.Tensor] = None):
     """The engine's cast: ``cast(ro, rd) -> Hit`` with ``occlude(ro, rd,
-    max_t)`` and ``occlude2(o1, d1, mt1, o2, d2, mt2)`` attributes, under
-    the autodiff rules of ``cast_vjp``.  ``engine="cuda"`` goes through the
-    dispatching wrappers; ``engine="torch"`` calls the plain versions on any
-    device.  The candidate-list cull has its own (``cull.make_cull_cast``;
-    ``engine.make_cast`` picks)."""
+    max_t)``, ``occlude2(o1, d1, mt1, o2, d2, mt2)`` and ``visit_counts(ro,
+    rd)`` attributes, under the autodiff rules of ``cast_vjp``: the reparam
+    rule over the packed rows ``geo`` where given (``edge_aware_grads``,
+    with K1's exact_uv branch), else the detached one.  ``engine="cuda"``
+    goes through the dispatching wrappers; ``engine="torch"`` calls the
+    plain versions on any device.  The candidate-list cull has its own
+    (``cull.make_cull_cast``; ``engine.make_cast`` picks)."""
     if data.nodes is None:
         raise ValueError("make_cuda_cast walks the LBVH: CastData without "
                          "nodes is the cull's (cull.make_cull_cast)")
     if cfg.engine == "cuda":
-        queries = bvh_cast, bvh_occlude, bvh_occlude2
+        queries = bvh_cast, bvh_occlude, bvh_occlude2, bvh_visit_counts
     elif cfg.engine == "torch":
         queries = (bvh_cast_reference, bvh_occlude_reference,
-                   bvh_occlude2_reference)
+                   bvh_occlude2_reference, bvh_visit_counts_reference)
     else:
         raise ValueError(f"unknown engine {cfg.engine!r} "
                          "(expected 'torch' or 'cuda')")
-    cast_q, occ_q, occ2_q = queries
+    cast_k, occ_q, occ2_q, visits_k = queries
+    exact_uv = cfg.edge_aware_grads
+
+    def cast_q(ro, rd, d):
+        return cast_k(ro, rd, d, exact_uv=exact_uv)
 
     def cast(ro, rd):
-        return cast_detached(cast_q, ro, rd, data)
+        return closest_hit(cast_q, ro, rd, data, geo)
 
     def occlude(ro, rd, max_t):
         return occlude_detached(occ_q, ro, rd, max_t, data)
@@ -845,6 +1040,11 @@ def make_cuda_cast(data: CastData, cfg: RenderConfig):
     def occlude2(o1, d1, mt1, o2, d2, mt2):
         return occlude2_detached(occ2_q, o1, d1, mt1, o2, d2, mt2, data)
 
+    @torch.no_grad()
+    def visit_counts(ro, rd):
+        return visits_k(ro.contiguous(), rd.contiguous(), data)
+
     cast.occlude = occlude
     cast.occlude2 = occlude2
+    cast.visit_counts = visit_counts
     return cast

@@ -26,12 +26,14 @@ for nearly every instance and overflows: that is the JAX package's behaviour,
 kept.
 
 The CUDA kernels (``csrc/cull_kernels.cu``) run one ray per thread over its
-tile's list, from a copy of the list in shared memory, four entries at a
+tile's list, from a copy of the list in shared memory (in pieces of at most
+:data:`PIECE` entries, so any instance count runs), four entries at a
 time, passing over what no lane of a warp can use (K5: leaving once no lane
 can be blocked; K4: once no lane can find a closer hit in the rest of the
 list); the plain versions take the same instances in the same order for
 each ray (slot ``k`` of the ray's tile, or ``k`` itself on overflow) with
-the table rows gathered per ray, and give the same bits.
+the table rows gathered per ray, and give the same bits.  Under
+``edge_aware_grads`` K4 runs its exact_uv instantiation.
 """
 
 from __future__ import annotations
@@ -45,15 +47,15 @@ from .. import raymath as rm
 from ..scene import RenderConfig
 from . import cuda_engine as ce
 from .cast import Hit
-from .cast_vjp import cast_detached, occlude2_detached, occlude_detached
+from .cast_vjp import closest_hit, occlude2_detached, occlude_detached
 
 LANES = 128  # the JAX package's lane width: a tile is tile_rows * LANES rays
 MAX_CAND = 64  # make_pallas_cast's default list length
-# K4 and K5 stage a tile's list in shared memory: box, flags and instance of
-# an entry, and its share of the box of its group of four (K4: also of the
-# two boxes of its span of sixteen)
-_ENTRY_BYTES = {"cull_cast": 32 + 8 + 4, "cull_occlude": 32 + 8}
-_SHARED_BYTES = 232448  # dynamic shared memory a block can have (H100)
+# K4 and K5 stage a tile's list in shared memory in pieces of at most PIECE
+# entries (csrc/cull_kernels.cu kPiece); a list of up to PIECE columns is
+# one piece, and the overflow list's pieces have their union boxes built
+# once per launch into scratch of 8 floats a piece
+PIECE = 512
 
 
 def auto_tile_rows(width: int, height: int) -> int:
@@ -241,16 +243,25 @@ class _Best:
 
 
 def _closest_update(best: _Best, f, ii, gate, tns, tfs, inside, o, d,
-                    tmpl, max_tris: int, any_tmpl: bool) -> None:
+                    tmpl, max_tris: int, any_tmpl: bool, *,
+                    exact_uv: bool = False, work=None) -> None:
     """``_intersect_instance`` for rays ``[R]`` each against its own
     instance (table rows ``f [R, 40]``, ``ii [R, 24]``) where ``gate``
     (its box test, the prune included) passed; ``tns, tfs, inside``: the
-    slab terms of the box that gate read."""
+    slab terms of the box that gate read.  ``exact_uv``: the box fast
+    path's true triangle and barycentrics.  ``work``: the box updates go
+    to its ``exact`` column."""
     is_box = ii[:, ce._II_IS_BOX] > 0
-    ok, t_hit, wtri, nrm = ce._box_face_hit(tns, tfs, inside, d, f, ii)
+    ok, t_hit, wtri, nrm, face = ce._box_face_hit(tns, tfs, inside, d, f, ii,
+                                                  with_face=True)
     ok = gate & is_box & ok & (t_hit < best.t)
-    third = torch.full_like(best.u, 1.0 / 3.0)
-    best.take(ok, t_hit, wtri, third, third, [nrm[:, c] for c in range(3)],
+    if work is not None:
+        work[:, 4] += ok
+    if exact_uv:
+        u, v, wtri = ce._box_exact_uv(f, ii, tmpl, o, d, t_hit, face)
+    else:
+        u = v = torch.full_like(best.u, 1.0 / 3.0)
+    best.take(ok, t_hit, wtri, u, v, [nrm[:, c] for c in range(3)],
               ii[:, ce._II_MAT])
     if not any_tmpl:
         return
@@ -272,11 +283,12 @@ def _closest_update(best: _Best, f, ii, gate, tns, tfs, inside, o, d,
 
 def cull_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
                         cand: torch.Tensor, info: torch.Tensor, tile: int,
-                        tables: ce.SceneTables, *,
+                        tables: ce.SceneTables, *, exact_uv: bool = False,
                         work: Optional[torch.Tensor] = None) -> Hit:
     """Plain version of K4 on padded rays ``[T * tile, 3]``: closest hit
-    over each ray's tile list, visited in the kernel's order.  ``work``:
-    see ``cuda_engine.WORK_COLUMNS``."""
+    over each ray's tile list, visited in the kernel's order; ``exact_uv``
+    as ``cuda_engine.bvh_cast_reference``.  ``work``: see
+    ``cuda_engine.WORK_COLUMNS``."""
     R = ro.shape[0]
     o = [ro[:, k] for k in range(3)]
     d = [rd[:, k] for k in range(3)]
@@ -303,7 +315,8 @@ def cull_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
             work[:, 2] += gate & ~is_box
             work[:, 3] += (gate & ~is_box) * ii[:, ce._II_TRI_COUNT]
         _closest_update(best, f, ii, gate, tns, tfs, inside, o, d,
-                        tables.tmpl, max_tris, any_tmpl)
+                        tables.tmpl, max_tris, any_tmpl, exact_uv=exact_uv,
+                        work=work)
     return best.hit()
 
 
@@ -373,34 +386,56 @@ def _check_lists(ro, cand, info, tile: int):
         raise ValueError("cand: needs at least one column")
 
 
-def _check_staging(name: str, cand, tables: ce.SceneTables) -> int:
-    """What K4/K5 need to stage a tile's list in shared memory; returns the
-    instance count."""
+def overflow_piece_boxes(tables: ce.SceneTables,
+                         piece: int = PIECE) -> torch.Tensor:
+    """Plain version of K4/K5's ``piece_boxes_kernel``: ``[P, 6]`` the union
+    (min xyz, max xyz) of the valid instance boxes of each piece of
+    ``piece`` instances in table order -- the overflow list's pieces; a
+    piece without a valid box keeps the inverted box."""
+    n = tables.inst_f32.shape[0]
+    box = tables.inst_f32[:, ce._IF_BMIN:ce._IF_BMIN + 6]
+    valid = (tables.inst_i32[:, ce._II_VALID] > 0)[:, None]
+    inverted = box.new_tensor([ce.F32_BIG] * 3 + [ce.F32_NEG_BIG] * 3)
+    box = torch.where(valid, box, inverted)
+    pad = -n % piece
+    box = torch.cat([box, inverted.expand(pad, 6)]).reshape(-1, piece, 6)
+    return torch.cat([box[..., :3].amin(1), box[..., 3:].amax(1)], -1)
+
+
+def _staging(name: str, cand, tables: ce.SceneTables):
+    """What K4/K5 need to stage a tile's list: returns the instance count
+    and the scratch for the overflow list's piece boxes (None where that
+    list is one piece)."""
     n_inst = tables.inst_f32.shape[0]
-    entries = max(cand.shape[1], n_inst)
-    per = _ENTRY_BYTES[name]
-    if (entries + 3) * per > _SHARED_BYTES:
-        raise ValueError(f"{name} stages a tile's list in shared memory: "
-                         f"{entries} entries of {per} bytes exceed a "
-                         f"block's {_SHARED_BYTES}")
+    if cand.shape[1] > PIECE:
+        raise ValueError(f"{name}: lists of {cand.shape[1]} columns; a "
+                         f"listed tile's list is one piece of at most "
+                         f"{PIECE}")
     if tables.inst_f32.data_ptr() % 16:
         raise ValueError(f"inst_f32: {name} reads 16-byte aligned rows")
-    return n_inst
+    scratch = None
+    if n_inst > PIECE:
+        scratch = torch.empty(-(-n_inst // PIECE), 8, dtype=torch.float32,
+                              device=cand.device)
+    return n_inst, scratch
 
 
 def cull_cast(ro: torch.Tensor, rd: torch.Tensor, cand: torch.Tensor,
-              info: torch.Tensor, tile: int, tables: ce.SceneTables) -> Hit:
+              info: torch.Tensor, tile: int, tables: ce.SceneTables, *,
+              exact_uv: bool = False) -> Hit:
     """K4 (``_cast_kernel``): closest hit of padded rays ``[T * tile, 3]``
-    f32 over the lists of :func:`tile_candidates`."""
+    f32 over the lists of :func:`tile_candidates`, of any length;
+    ``exact_uv`` takes the kernel's exact_uv instantiation."""
     R = ro.shape[0]
     dev = ro.device
     ce._check("ro", ro, torch.float32, (R, 3), dev)
     ce._check("rd", rd, torch.float32, (R, 3), dev)
     _check_lists(ro, cand, info, tile)
     if ce._device_kind(ro) == "cpu":
-        return cull_cast_reference(ro, rd, cand, info, tile, tables)
+        return cull_cast_reference(ro, rd, cand, info, tile, tables,
+                                   exact_uv=exact_uv)
     ce._check_tables(tables, dev)
-    n_inst = _check_staging("cull_cast", cand, tables)
+    n_inst, scratch = _staging("cull_cast", cand, tables)
     from . import kernels
 
     t = torch.empty(R, dtype=torch.float32, device=dev)
@@ -413,22 +448,25 @@ def cull_cast(ro: torch.Tensor, rd: torch.Tensor, cand: torch.Tensor,
             ce._ptr(ro), ce._ptr(rd), R, ce._ptr(cand), ce._ptr(info),
             cand.shape[1], tile, ce._ptr(tables.inst_f32),
             ce._ptr(tables.inst_i32), n_inst, ce._ptr(tables.tmpl),
+            None if scratch is None else ce._ptr(scratch), int(exact_uv),
             ce._ptr(t), ce._ptr(wtri), ce._ptr(uv), ce._ptr(normal),
             ce._ptr(mat), dev.index, kernels.stream_handle(dev))
         ce._raise_on(err, "cull_cast")
         cull_cast.launches += 1
+        cull_cast.exact_uv_launches += int(exact_uv)
     return Hit(valid=torch.isfinite(t), t=t, wtri=wtri, uv=uv,
                normal=normal, mat=mat)
 
 
-cull_cast.launches = 0
+cull_cast.launches = 0  # every launch of K4
+cull_cast.exact_uv_launches = 0  # of its exact_uv instantiation
 
 
 def cull_occlude(ro, rd, max_t, cand, info, tile: int,
                  tables: ce.SceneTables) -> torch.Tensor:
     """K5 (``_occlude_kernel``): any-hit query of padded rays ``[T * tile,
-    3]`` f32 with ``max_t`` ``[T * tile]`` f32 over the tile lists.
-    Returns bool ``[T * tile]``."""
+    3]`` f32 with ``max_t`` ``[T * tile]`` f32 over the tile lists, of any
+    length.  Returns bool ``[T * tile]``."""
     R = ro.shape[0]
     dev = ro.device
     ce._check("ro", ro, torch.float32, (R, 3), dev)
@@ -439,7 +477,7 @@ def cull_occlude(ro, rd, max_t, cand, info, tile: int,
         return cull_occlude_reference(ro, rd, max_t, cand, info, tile,
                                       tables)
     ce._check_tables(tables, dev)
-    n_inst = _check_staging("cull_occlude", cand, tables)
+    n_inst, scratch = _staging("cull_occlude", cand, tables)
     from . import kernels
 
     blk = torch.empty(R, dtype=torch.bool, device=dev)
@@ -448,7 +486,8 @@ def cull_occlude(ro, rd, max_t, cand, info, tile: int,
             ce._ptr(ro), ce._ptr(rd), ce._ptr(max_t), R, ce._ptr(cand),
             ce._ptr(info), cand.shape[1], tile, ce._ptr(tables.inst_f32),
             ce._ptr(tables.inst_i32), n_inst, ce._ptr(tables.tmpl),
-            ce._ptr(blk), dev.index, kernels.stream_handle(dev))
+            None if scratch is None else ce._ptr(scratch), ce._ptr(blk),
+            dev.index, kernels.stream_handle(dev))
         ce._raise_on(err, "cull_occlude")
         cull_occlude.launches += 1
     return blk
@@ -461,12 +500,15 @@ cull_occlude.launches = 0
 # the engine's cast
 # ---------------------------------------------------------------------------
 
-def make_cull_cast(data: ce.CastData, cfg: RenderConfig):
+def make_cull_cast(data: ce.CastData, cfg: RenderConfig,
+                   geo: Optional[torch.Tensor] = None):
     """The engine's cast on the cull (``make_pallas_cast`` with
     ``traversal="cull"`` under ``cast_vjp``'s chunked rules): ``cast(ro,
-    rd)`` through K4 with ``occlude`` through K5 and ``occlude2`` as two K5
-    queries (``_pallas_chunked_occlude2``'s fallback for a traversal without
-    a fused kernel).  ``engine="torch"`` takes the plain versions."""
+    rd)`` through K4 (its exact_uv branch under ``edge_aware_grads``, with
+    the reparam rule over the packed rows ``geo``) with ``occlude`` through
+    K5 and ``occlude2`` as two K5 queries (``_pallas_chunked_occlude2``'s
+    fallback for a traversal without a fused kernel).  ``engine="torch"``
+    takes the plain versions."""
     if cfg.engine == "cuda":
         cast_k, occ_k = cull_cast, cull_occlude
     elif cfg.engine == "torch":
@@ -485,7 +527,8 @@ def make_cull_cast(data: ce.CastData, cfg: RenderConfig):
         ro_p, rd_p = lay.pad_rays(ro, rd, 1.0e30)
         cand, info = tile_candidates(ro_p, rd_p, tile, tables.inst_f32,
                                      MAX_CAND)
-        hit = cast_k(ro_p, rd_p, cand, info, tile, tables)
+        hit = cast_k(ro_p, rd_p, cand, info, tile, tables,
+                     exact_uv=cfg.edge_aware_grads)
         return Hit(valid=lay.unpad(hit.valid), t=lay.unpad(hit.t),
                    wtri=lay.unpad(hit.wtri), uv=lay.unpad(hit.uv),
                    normal=lay.unpad(hit.normal), mat=lay.unpad(hit.mat))
@@ -503,7 +546,7 @@ def make_cull_cast(data: ce.CastData, cfg: RenderConfig):
                 occlude_query(o2, d2, mt2, _data))
 
     def cast(ro, rd):
-        return cast_detached(cast_query, ro, rd, data)
+        return closest_hit(cast_query, ro, rd, data, geo)
 
     def occlude(ro, rd, max_t):
         return occlude_detached(occlude_query, ro, rd, max_t, data)

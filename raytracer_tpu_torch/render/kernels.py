@@ -85,16 +85,16 @@ def library() -> ctypes.CDLL:
     argtypes = {
         # K1-K3 (bvh_kernels.cu)
         "rt_bvh_cast": [vp, vp, ci, vp, vp, ci, vp, vp, vp,
-                        vp, vp, vp, vp, vp, ci, vp],
+                        vp, vp, vp, vp, vp, ci, vp, ci, vp],
         "rt_bvh_occlude2": [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
                             vp, vp, vp, vp, vp, ci, vp],
         "rt_bvh_occlude": [vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
                            vp, ci, vp],
         # K4, K5 (cull_kernels.cu)
         "rt_cull_cast": [vp, vp, ci, vp, vp, ci, ci, vp, vp, ci, vp,
-                         vp, vp, vp, vp, vp, ci, vp],
+                         vp, ci, vp, vp, vp, vp, vp, ci, vp],
         "rt_cull_occlude": [vp, vp, vp, ci, vp, vp, ci, ci, vp, vp, ci,
-                            vp, vp, ci, vp],
+                            vp, vp, vp, ci, vp],
         # K6 (mxu_kernel.cu)
         "rt_mxu_cast": [vp, vp, ci, vp, ci, ci, vp, vp, ci, ci,
                         vp, vp, vp, vp, vp, vp, vp, ci, vp],

@@ -35,6 +35,7 @@ shadows take a closest-hit cast per light (``shading.march_shadow``).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -42,7 +43,7 @@ from .. import raymath as rm
 from ..scene import RenderConfig, Scene
 from . import cuda_engine as ce
 from .cast import Hit
-from .cast_vjp import cast_detached
+from .cast_vjp import closest_hit
 from .cull import LANES, CullLayout, tile_candidates
 from .geometry import WorldGeometry
 
@@ -336,11 +337,14 @@ def mxu_cast(info, columns, n_tris: int, ids, rd6, rp8, tile: int,
 mxu_cast.launches = 0
 
 
-def make_mxu_cast(data: MxuData, cfg: RenderConfig):
+def make_mxu_cast(data: MxuData, cfg: RenderConfig,
+                  geo: Optional[torch.Tensor] = None):
     """The engine's MXU cast (``engine.make_cast``'s ``pallas_kernel="mxu"``
-    branch: ``detach_visibility`` over the ray-chunked kernel).  The hit has
-    no normal and no material, and the cast has no ``occlude``/``occlude2``
-    queries.  ``engine="torch"`` takes the plain version."""
+    branch: ``detach_visibility`` over the ray-chunked kernel, or
+    ``reparam_cast`` over the packed rows ``geo`` under
+    ``edge_aware_grads``).  The hit has no normal and no material, and the
+    cast has no ``occlude``/``occlude2`` queries.  ``engine="torch"`` takes
+    the plain version."""
     if cfg.engine not in ("cuda", "torch"):
         raise ValueError(f"unknown engine {cfg.engine!r} "
                          "(expected 'torch' or 'cuda')")
@@ -364,6 +368,6 @@ def make_mxu_cast(data: MxuData, cfg: RenderConfig):
                    uv=torch.stack([lay.unpad(u), lay.unpad(v)], -1))
 
     def cast(ro, rd):
-        return cast_detached(query, ro, rd, data, with_attrs=False)
+        return closest_hit(query, ro, rd, data, geo, with_attrs=False)
 
     return cast

@@ -31,16 +31,48 @@ def _relu(x):
     return torch.maximum(x, x.new_zeros(()))
 
 
+class _MaterialRows(torch.autograd.Function):
+    """``table[idx]`` for a material table ``[K, 26]`` and per-ray indices
+    ``[R]``, whose backward sums each material's rows of the cotangent in
+    two passes that do not grow with K: an ``index_add_`` of each block of
+    ``max(64, K)`` consecutive rays into that block's own K partial rows,
+    then a sum of the partials over the blocks, all in FP32.  (The autograd
+    of a gather is torch's sort-based accumulate, which adds each run of
+    equal indices serially: ~1M rays a material in a 1080p frame; one
+    ``index_add_`` into K rows would put as many atomic adds on each row.)
+    The JAX package takes a one-hot matmul for the same reason, its
+    transpose being a matmul; additions need no TF32 guard."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        k, (r, c) = ctx.n_rows, g.shape
+        block = max(64, k)  # adds on a partial row; partials <= R rows
+        n_blocks = -(-r // block)
+        slot = idx + k * (torch.arange(r, device=idx.device) // block)
+        parts = g.new_zeros(n_blocks * k, c).index_add_(0, slot, g)
+        return parts.view(n_blocks, k, c).sum(0), None
+
+
 def gather_material_rows(mats: Materials, mat_idx: torch.Tensor) -> Materials:
-    """Per-ray material rows by exact index gather (the JAX package's one-hot
-    matmul at HIGHEST precision selects the same f32 values).  Its backward
-    is ``index_put_`` with accumulate, whose order of additions torch does
-    not fix on CUDA: compare material gradients by tolerance."""
-    idx = mat_idx.long()
+    """Per-ray material rows: the eight fields packed into one ``[K, 26]``
+    table as the JAX package packs them, and one exact row gather (the
+    values the JAX package's one-hot matmul at HIGHEST precision selects),
+    under :class:`_MaterialRows`'s blocked-sum backward.  Returns a
+    ``Materials`` whose leaves are per-ray rows ([R,4] / [R])."""
+    table = torch.cat([mats.ke, mats.ka, mats.kd, mats.ks, mats.kt, mats.kr,
+                       mats.alpha[:, None], mats.eta[:, None]], dim=1)
+    rows = _MaterialRows.apply(table, mat_idx.long())
     return dataclasses.replace(
-        mats, ke=mats.ke[idx], ka=mats.ka[idx], kd=mats.kd[idx],
-        ks=mats.ks[idx], kt=mats.kt[idx], kr=mats.kr[idx],
-        alpha=mats.alpha[idx], eta=mats.eta[idx])
+        mats, ke=rows[:, 0:4], ka=rows[:, 4:8], kd=rows[:, 8:12],
+        ks=rows[:, 12:16], kt=rows[:, 16:20], kr=rows[:, 20:24],
+        alpha=rows[:, 24], eta=rows[:, 25])
 
 
 def distance_attenuation(scene: Scene, dist):

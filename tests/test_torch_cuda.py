@@ -15,7 +15,15 @@ parked lanes and degenerate rays); K6's t, id, u and v must equal its plain
 version's (listed, dense and sky tiles, ties between a tile's chunks); a frame through the kernels must equal the ``"torch"``
 engine at atol 1e-5 (terrain8 on the LBVH walk, terrain6 on the cull and on
 the MXU cast), the per-light frame (K3) the fused one bit for bit; and the
-loss gradients of both engines must agree at rtol 1e-4 / atol 1e-6."""
+loss gradients of both engines must agree at rtol 1e-4 / atol 1e-6.
+
+The geometry-gradient path: K1's and K4's exact_uv instantiations equal
+their plain versions in every output (primary, random, degenerate and
+1080p rays); K1's visit counts equal its walk's replay
+(``cuda_engine.k1_walk_replay``) and hold the O(log N) envelope at 16,384
+instances; K4 and K5 on 9,216 instances (lists staged in pieces) equal
+their plain versions, and the forced cull's frame the walk's; the vertex
+gradients of both engines agree (verts at atol 1e-6 max|g|)."""
 
 import os
 
@@ -597,3 +605,211 @@ def test_terrain6_frame_cuda_matches_torch_engine(gpu_world6, path):
     assert n == ([0, 0, 0, 1, 2, 0] if path == "cull" else [0] * 5 + [3])
     ref = render_frame(s, cam, cfg.replace(engine="torch"))
     torch.testing.assert_close(img, ref, rtol=0.0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the geometry-gradient path: K1's and K4's exact_uv instantiations, K1's
+# visit counts, the cull on lists of any length, the vertex gradients
+# ---------------------------------------------------------------------------
+
+def _exact_uv_rays(world, case, boxes):
+    o, d = world["rays"]["primary" if case == "primary" else "random"]
+    if case == "degenerate":
+        o, d = _degenerate(o, d, boxes)
+    elif case == "1080p":
+        w = rtt.generate(world["path"])
+        cfg = world["cfg"].replace(width=1920, height=1080)
+        cam = rtt.to_device(scale_camera(w.camera, 1920, w.config.width),
+                            o.device)
+        o, d, _, _ = _frame_rays_blocked(cam, cfg)
+    return o, d
+
+
+@pytest.mark.parametrize("case", ["primary", "random", "degenerate",
+                                  "1080p"])
+def test_bvh_cast_exact_uv_kernel_matches_plain(gpu_world, case):
+    """K1's exact_uv instantiation against ``bvh_cast_reference(exact_uv=
+    True)`` over the box_exact_uv tables, every output identical."""
+    s = gpu_world["scene"]
+    geom = expand_geometry(s)
+    data = ce.prepare_cast(s, geom, gpu_world["cfg"].replace(
+        edge_aware_grads=True))
+    o, d = _exact_uv_rays(dict(gpu_world, path=WORLD), case,
+                          data.tables.inst_f32[:, :6])
+    before = ce.bvh_cast.launches
+    hk = ce.bvh_cast(o, d, data, exact_uv=True)
+    assert ce.bvh_cast.launches == before + 1
+    hp = ce.bvh_cast_reference(o, d, data, exact_uv=True)
+    torch.cuda.synchronize()
+    _assert_same_hits(hk, hp)
+    assert int(hk.valid.sum()) > 0
+    assert float((hk.uv[hk.valid] - 1.0 / 3.0).abs().max()) > 0.1
+
+
+def test_bvh_visits_kernel_equals_its_walk(gpu_world):
+    """K1's visits instantiation counts the node boxes its walk tests: its
+    plain version's count (the replay's), which is the per-thread walk's
+    plus two for each stale kept vote; its steps are no more than the
+    per-thread walk's visits."""
+    data = gpu_world["data"]["box"]
+    for rays in ("primary", "random"):
+        o, d = gpu_world["rays"][rays]
+        before = ce.bvh_visit_counts.launches
+        v = ce.bvh_visit_counts(o, d, data)
+        assert ce.bvh_visit_counts.launches == before + 1
+        plain = ce.bvh_visit_counts_reference(o, d, data)
+        _, replay, stale = ce.k1_walk_replay(o, d, data)
+        work = torch.zeros(o.shape[0], len(ce.WORK_COLUMNS),
+                           dtype=torch.int64, device=o.device)
+        ce.bvh_cast_reference(o, d, data, work=work)
+        torch.cuda.synchronize()
+        assert torch.equal(v, plain)
+        assert torch.equal(replay.to(torch.int32), plain)
+        assert torch.equal(replay, work[:, 0] + 2 * stale)
+        assert bool(((replay - 1) // 2 <= work[:, 0]).all())
+
+
+def test_bvh_visits_scale_logarithmically_on_the_card():
+    """``tests/test_accel.py``'s envelope on the kernel's counts: 64x the
+    instances (16,384 against 256 touching cubes) cost under 4x the
+    visits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from raytracer_tpu_torch.builder import make_grid_world
+
+    dev = torch.device("cuda", 0)
+    mean = {}
+    for side in (16, 128):
+        scene_np, _, cfg = make_grid_world(side)
+        scene = rtt.to_device(scene_np, dev)
+        data = ce.prepare_cast(scene, expand_geometry(scene),
+                               cfg.replace(pallas_traversal="bvh"))
+        xs = torch.linspace(0.5 * side - 6.0, 0.5 * side + 6.0, 32,
+                            device=dev)
+        gx, gz = torch.meshgrid(xs, xs, indexing="xy")
+        o = torch.stack([gx.reshape(-1), torch.full_like(gx, 10.0)
+                         .reshape(-1), gz.reshape(-1)], -1).contiguous()
+        d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand_as(o)
+        d = d.contiguous()
+        assert bool(ce.bvh_cast(o, d, data).valid.all())
+        mean[side] = float(ce.bvh_visit_counts(o, d, data).float().mean())
+    assert mean[16] < mean[128] < 4.0 * mean[16], mean
+
+
+@pytest.mark.parametrize("case", ["primary", "random", "degenerate",
+                                  "1080p"])
+def test_cull_cast_exact_uv_kernel_matches_plain(gpu_world6, case):
+    tab = ce.prepare_cast(gpu_world6["scene"], gpu_world6["geom"],
+                          gpu_world6["cfg"].replace(
+                              edge_aware_grads=True)).tables
+    o, d = _exact_uv_rays(dict(gpu_world6, path=WORLD6), case,
+                          tab.inst_f32[:, :6])
+    cfg = gpu_world6["cfg"]
+    if case == "1080p":
+        cfg = cfg.replace(width=1920, height=1080)
+    tile = cull.tile_rows_of(cfg) * cull.LANES
+    lay = cull.CullLayout.of(o.shape[0], cfg.pallas_ray_chunk, tile)
+    o_p, d_p = lay.pad_rays(o, d, 1.0e30)
+    cand, info = cull.tile_candidates(o_p, d_p, tile, tab.inst_f32,
+                                      cull.MAX_CAND)
+    hk = cull.cull_cast(o_p, d_p, cand, info, tile, tab, exact_uv=True)
+    hp = cull.cull_cast_reference(o_p, d_p, cand, info, tile, tab,
+                                  exact_uv=True)
+    torch.cuda.synchronize()
+    _assert_same_hits(hk, hp)
+    assert int(hk.valid.sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def gpu_grid96():
+    """96 x 96 touching cubes (9,216 instances): above every instance
+    count K4 and K5 staged whole before lists came in pieces."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from raytracer_tpu_torch.builder import make_grid_world
+
+    dev = torch.device("cuda", 0)
+    scene_np, cam, cfg = make_grid_world(96)
+    scene = rtt.to_device(scene_np, dev)
+    cam = rtt.to_device(scale_camera(cam, 160, 640), dev)
+    cfg = cfg.replace(engine="cuda", width=160, height=120,
+                      pallas_traversal="cull", tile_rows=8)
+    data = ce.prepare_cast(scene, expand_geometry(scene), cfg)
+    assert data.nodes is None
+    return dict(scene=scene, cam=cam, cfg=cfg, tables=data.tables,
+                tile=8 * cull.LANES)
+
+
+def test_cull_kernels_on_9216_instances(gpu_grid96):
+    g = gpu_grid96
+    ro, rd, _, _ = _frame_rays_blocked(g["cam"], g["cfg"])
+    lay = cull.CullLayout.of(ro.shape[0], g["cfg"].pallas_ray_chunk,
+                             g["tile"])
+    o_p, d_p = lay.pad_rays(ro, rd, 1.0e30)
+    cand, info = cull.tile_candidates(o_p, d_p, g["tile"],
+                                      g["tables"].inst_f32, cull.MAX_CAND)
+    over = (info[:, 1] > 0).nonzero().flatten()[:2].tolist()
+    listed = ((info[:, 1] == 0) & (info[:, 0] > 0)).nonzero().flatten()
+    pick = over + listed[:1].tolist()
+    assert len(over) == 2 and int(info[over[0], 0]) == 9216
+    tile = g["tile"]
+    sel = torch.cat([torch.arange(t * tile, (t + 1) * tile,
+                                  device=ro.device) for t in pick])
+    o, d = o_p[sel].contiguous(), d_p[sel].contiguous()
+    c, i = cand[pick].contiguous(), info[pick].contiguous()
+    hk = cull.cull_cast(o, d, c, i, tile, g["tables"])
+    hp = cull.cull_cast_reference(o, d, c, i, tile, g["tables"])
+    torch.cuda.synchronize()
+    _assert_same_hits(hk, hp)
+    assert int(hk.valid.sum()) > 0
+    t = torch.where(hk.valid, hk.t, 1.0)
+    o1, d1, dist, _, _ = shadow_rays(g["scene"], o + t[:, None] * d,
+                                     hk.valid)
+    c5, i5 = cull.tile_candidates(o1, d1, tile, g["tables"].inst_f32,
+                                  cull.MAX_CAND)
+    bk = cull.cull_occlude(o1, d1, dist, c5, i5, tile, g["tables"])
+    bp = cull.cull_occlude_reference(o1, d1, dist, c5, i5, tile,
+                                     g["tables"])
+    torch.cuda.synchronize()
+    assert torch.equal(bk, bp)
+
+
+def test_cull_frame_on_9216_instances_equals_walk(gpu_grid96):
+    g = gpu_grid96
+    before = (cull.cull_cast.launches, cull.cull_occlude.launches)
+    img = render_frame(g["scene"], g["cam"], g["cfg"])
+    torch.cuda.synchronize()
+    assert cull.cull_cast.launches == before[0] + 1
+    assert cull.cull_occlude.launches == before[1] + 2
+    walk = render_frame(g["scene"], g["cam"], g["cfg"].replace(
+        pallas_traversal="bvh"))
+    torch.testing.assert_close(img, walk, rtol=0.0, atol=1e-5)
+    assert float((img[..., :3].amax(-1) > 0).float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("case", ["terrain8", "terrain6", "terrain6_mxu"])
+def test_vertex_grads_cuda_match_torch_engine(gpu_world, gpu_world6, case):
+    """The geometry-gradient step (``edge_aware_grads``, vertices
+    trainable) through the exact_uv kernels and the reparam rule: grads
+    equal to the ``"torch"`` engine's, verts at atol 1e-6 max|g| (per-vertex
+    sums in another order), the forward frame the plain one."""
+    w = gpu_world if case == "terrain8" else gpu_world6
+    s, cam, cfg = w["scene"], w["cam"], w["cfg"].replace(
+        edge_aware_grads=True)
+    if case == "terrain6_mxu":
+        cfg = cfg.replace(pallas_kernel="mxu")
+    assert torch.equal(render_frame(s, cam, cfg), render_frame(
+        s, cam, cfg.replace(edge_aware_grads=False)))
+    target = torch.zeros(cfg.height, cfg.width, 4, device=cam.pos.device)
+    grads = {}
+    for engine in ("cuda", "torch"):
+        params = diff.trainable_params(s, cam, include_vertices=True)
+        loss = diff.make_loss_fn(s, cam, cfg.replace(engine=engine),
+                                 target)(params)
+        grads[engine] = diff.grad_of(loss, params)
+    assert float(grads["cuda"]["verts"].abs().max()) > 0.0
+    for (key, a), b in zip(tree.leaves_with_paths(grads["cuda"]),
+                           tree.leaves(grads["torch"])):
+        assert bool(torch.isfinite(a).all()), key
+        atol = 1e-6 * float(b.abs().max()) if key == "['verts']" else 1e-6
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=atol, msg=key)

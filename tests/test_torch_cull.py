@@ -693,7 +693,7 @@ def test_skip_next_closed_form_equals_the_loop():
 def _walk_in_lockstep(data, queries, closest):
     """The LBVH's per-thread stackless walk written out per ray, every ray
     one node per step -- K2's and K3's kernels, and the walk whose visits
-    the plain versions count as K1's work: ``(work [R, 4], best t)`` of a
+    the plain versions count as K1's work: ``(work [R, 5], best t)`` of a
     closest hit (``closest``, one query) or ``(work, blocked masks)`` of
     K3/K2 (one or two queries, the walk ending once all are blocked)."""
     n, tab = data.n_leaves, data.tables
@@ -706,7 +706,7 @@ def _walk_in_lockstep(data, queries, closest):
                blk=torch.zeros(R, dtype=torch.bool)) for ro, rd, mt in queries]
     bt = torch.full((R,), float("inf"))
     v = torch.ones(R, dtype=torch.long)
-    work = torch.zeros(R, 4, dtype=torch.long)
+    work = torch.zeros(R, len(ce.WORK_COLUMNS), dtype=torch.long)
     while True:
         live = v > 0
         if not closest:
@@ -740,7 +740,9 @@ def _walk_in_lockstep(data, queries, closest):
             if closest:
                 hit, t_hit, _, _ = ce._box_face_hit(tns, tfs, inside, q["d"],
                                                     f, ii)
-                bt = torch.where(enter & box & hit & (t_hit < bt), t_hit, bt)
+                upd = enter & box & hit & (t_hit < bt)
+                work[:, 4] += upd
+                bt = torch.where(upd, t_hit, bt)
                 work[:, 3] += tgate * count
                 for j in range(max_tris):
                     row = tab.tmpl[(ii[:, ce._II_TMPL_START] + j).clamp(
@@ -781,7 +783,7 @@ def test_walk_work_counts_follow_the_kernels_walk(world, tables, query):
     ro_, rd_ = _random(po.shape[0], seed=3)
     mt = _max_ts(po.shape[0], "per_ray")
     t = torch.from_numpy
-    work = torch.zeros(po.shape[0], 4, dtype=torch.long)
+    work = torch.zeros(po.shape[0], len(ce.WORK_COLUMNS), dtype=torch.long)
     if query == "cast":
         hit = ce.bvh_cast_reference(t(po), t(pd), data, work=work)
         expect, bt = _walk_in_lockstep(data, [(t(po), t(pd), None)], True)
@@ -821,7 +823,8 @@ def test_cull_work_counts(world, tables):
         cand, info = cull.tile_candidates(o_p, d_p, tile,
                                           data.tables.inst_f32, cull.MAX_CAND)
         loop = info[torch.arange(o_p.shape[0]) // tile, 0].long()
-        work = torch.zeros(o_p.shape[0], 4, dtype=torch.long)
+        work = torch.zeros(o_p.shape[0], len(ce.WORK_COLUMNS),
+                           dtype=torch.long)
         if name == "cast":
             hit = cull.cull_cast_reference(o_p, d_p, cand, info, tile,
                                            data.tables, work=work)

@@ -146,19 +146,21 @@ def _material_world(tmp_path, change):
 def test_unported_settings_raise(frames, tmp_path, change):
     """Settings the port does not cover raise, naming the ROADMAP item.
     The cull and the MXU kernel are ported now: they render terrain8's
-    frame (equal to the LBVH walk's), and the MXU kernel with edge-aware
-    gradients (the JAX package's reparam rule) still raises."""
+    frame (equal to the LBVH walk's); so are edge-aware gradients, on every
+    cast (the frame unchanged), and vertex parameters."""
     scene, cam, cfg = frames["scene"], frames["cam"], frames["cfg"]
     cfg = cfg.replace(engine="cuda", width=8, height=8)
-    if change in ("traversal_cull", "kernel_mxu"):
-        ported = cfg.replace(pallas_traversal="cull") if change == \
-            "traversal_cull" else cfg.replace(pallas_kernel="mxu")
-        np.testing.assert_allclose(render_frame(scene, cam, ported).numpy(),
+    if change in ("traversal_cull", "kernel_mxu", "edge_aware"):
+        ported = {"traversal_cull": cfg.replace(pallas_traversal="cull"),
+                  "kernel_mxu": cfg.replace(pallas_kernel="mxu"),
+                  "edge_aware": cfg}[change]
+        img = render_frame(scene, cam, ported)
+        np.testing.assert_allclose(img.numpy(),
                                    render_frame(scene, cam, cfg).numpy(),
                                    rtol=0, atol=1e-5)
-        cfg = ported.replace(edge_aware_grads=True)
-    elif change == "edge_aware":
-        cfg = cfg.replace(edge_aware_grads=True)
+        assert torch.equal(render_frame(
+            scene, cam, ported.replace(edge_aware_grads=True)), img)
+        return
     elif change == "spp":
         cfg = cfg.replace(spp=4)
     elif change == "tile_cap":
@@ -166,8 +168,9 @@ def test_unported_settings_raise(frames, tmp_path, change):
     elif change == "texture":
         cfg = cfg.replace(texture_mapping=True)
     elif change == "vertex grads":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            diff.trainable_params(scene, cam, include_vertices=True)
+        params = diff.trainable_params(scene, cam, include_vertices=True)
+        assert torch.equal(params["verts"], scene.verts)
+        assert params["verts"].requires_grad and params["verts"].is_leaf
         return
     else:
         w = rtt.generate(_material_world(tmp_path, change))

@@ -35,7 +35,7 @@ from raytracer_tpu.scene import device_scene
 
 from raytracer_tpu_torch import convert
 from raytracer_tpu_torch.render import cuda_engine as ce
-from raytracer_tpu_torch.render import cull, geometry
+from raytracer_tpu_torch.render import geometry
 
 torch.set_num_threads(2)
 
@@ -127,8 +127,10 @@ def test_bvh_cast_matches_pallas(setup, tables, rays):
 def test_wrappers_check_inputs(setup):
     data = setup["casts"]["box"][1]
     o, d = (torch.from_numpy(x) for x in setup["rays"]["random"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ce.bvh_cast(o, d, data, exact_uv=True)
+    exact = ce.bvh_cast(o, d, data, exact_uv=True)  # ported: no raise
+    want = ce.bvh_cast_reference(o, d, data, exact_uv=True)
+    assert torch.equal(exact.uv, want.uv) and torch.equal(exact.wtri,
+                                                          want.wtri)
     with pytest.raises(TypeError):
         ce.bvh_cast(o.double(), d.double(), data)
     with pytest.raises(ValueError):
@@ -248,71 +250,12 @@ def _degenerate_rays(kind, data, n=2048, seed=0):
 
 
 def _pair_walk(data, ro, rd):
-    """K1's walk as its kernel runs it, every ray one step at a time: a
-    step tests both children of the node the ray entered; two leaves go
-    through their own gates in preorder; of two inner children that both
-    vote, the left is entered and the right's vote is kept for later; with
-    nothing to enter the ray pops to the deepest right child kept.  Leaf
-    updates are the plain versions' (``cull._closest_update``).  Returns
-    ``(Hit, steps per ray, kept right children whose own vote would fail
-    when entered)``."""
-    n, tab = data.n_leaves, data.tables
-    total = 2 * n - 1
-    R = ro.shape[0]
-    o = [ro[:, k] for k in range(3)]
-    d = [rd[:, k] for k in range(3)]
-    par, inv = ce._ray_recips(rd)
-    max_tris = int(tab.inst_i32[:, ce._II_TRI_COUNT].max())
-    any_tmpl = bool((tab.inst_i32[:, ce._II_IS_BOX] == 0).any())
-    best = cull._Best(R, ro.device)
-
-    def gate(u):
-        row = data.nodes[(total - u).clamp(0, total - 1)]
-        tns, tfs, inside = ce._slab_terms(row, o, inv, par)
-        tmin, tmax = ce._max3(tns), ce._min3(tfs)
-        ok = ((tmin <= tmax) & (tmax >= ce.rm.THRESHOLD) & inside
-              & (row[:, 6] > 0.0))
-        return tns, tfs, inside, tmin, ok
-
-    def leaf(u, g, lanes):
-        tns, tfs, inside, tmin, ok = g
-        inst = data.ordering[(total - u).clamp(0, n - 1)].long()
-        go = lanes & ok & (tmin < best.t) & (inst >= 0)
-        i = inst.clamp(min=0)
-        cull._closest_update(best, tab.inst_f32[i], tab.inst_i32[i], go, tns,
-                             tfs, inside, o, d, tab.tmpl, max_tris, any_tmpl)
-
-    one = torch.ones(R, dtype=torch.long)
-    g = gate(one)
-    v = torch.where(g[4] & (g[3] < best.t), one, 0)
-    depth = torch.zeros(R, dtype=torch.long)
-    pend = torch.zeros(R, dtype=torch.long)
-    steps = torch.zeros(R, dtype=torch.long)
-    stale = 0
-    while bool((v > 0).any()):
-        live = v > 0
-        steps += live
-        c = 2 * v
-        g0, g1 = gate(c), gate(c + 1)
-        leaves = live & (c >= n)
-        leaf(c, g0, leaves)
-        leaf(c + 1, g1, leaves)
-        inner = live & ~leaves
-        go0 = inner & g0[4] & (g0[3] < best.t)
-        go1 = inner & g1[4] & (g1[3] < best.t)
-        down = go0 | go1
-        pend = torch.where(go0 & go1, pend | (1 << (depth + 1)), pend)
-        pop = live & ~down & (pend > 0)
-        top = torch.where(pend > 0, torch.log2(pend.clamp(min=1).double())
-                          .floor().long(), 0)
-        right = (v >> (depth - top).clamp(min=0)) | 1
-        rg = gate(right)  # the kept vote, taken again under today's best
-        stale += int((pop & ~(rg[4] & (rg[3] < best.t))).sum())
-        v = torch.where(down, torch.where(go0, c, c + 1),
-                        torch.where(pop, right, torch.where(live, 0, v)))
-        depth = torch.where(down, depth + 1, torch.where(pop, top, depth))
-        pend = torch.where(pop, pend & ~(1 << top), pend)
-    return best.hit(), steps, stale
+    """K1's walk as its kernel runs it (``cuda_engine.k1_walk_replay``: both
+    children a step, the right child's vote kept, pops to the deepest kept
+    right child).  Returns ``(Hit, steps per ray, kept right children whose
+    own vote would fail when entered)``."""
+    hit, visits, stale = ce.k1_walk_replay(ro, rd, data)
+    return hit, (visits - 1) // 2, int(stale.sum())
 
 
 @pytest.mark.parametrize("tables", ["box", "template"])
@@ -330,7 +273,7 @@ def test_k1_pair_walk_equals_plain(setup, tables, rays):
         o, d = _degenerate_rays(rays, data)
     o, d = torch.from_numpy(np.ascontiguousarray(o)), torch.from_numpy(
         np.ascontiguousarray(d))
-    work = torch.zeros(o.shape[0], 4, dtype=torch.long)
+    work = torch.zeros(o.shape[0], len(ce.WORK_COLUMNS), dtype=torch.long)
     want = ce.bvh_cast_reference(o, d, data, work=work)
     got, steps, stale = _pair_walk(data, o, d)
     for name in ("valid", "t", "wtri", "uv", "normal", "mat"):

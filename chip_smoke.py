@@ -12,15 +12,18 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    incoherent rays and degenerate rays made from them, with box tables and
    with template tables (build_tables(exact_uv=True)), and the 1920x1080
    primary rays;
-4. K2 (fused two-light shadow query) against its plain version on that
-   frame's shadow queries (finite and +inf max_t), both table kinds;
+4. K2 (fused two-light shadow query) against its plain version, every
+   mask identical, both table kinds: the 640x480 and 1920x1080 frames'
+   shadow queries (the point light at finite max_t, the directional light
+   at +inf), the random rays at seeded random finite max_t and (reversed)
+   at +inf, and the degenerate rays at both;
 5. render_frame with engine="cuda" at 640x480 and 1920x1080 with the launch
    counters reset just before, compared with engine="torch" on the card;
    then timings with CUDA events: median frame ms of each engine, and
    per-launch ms of each kernel against its plain version;
-6. K3 (single shadow query) against its plain version on that frame's
-   point-light (finite max_t) and directional (+inf) queries, both table
-   kinds; its masks must also equal each query of K2;
+6. K3 (single shadow query) against its plain version on each query of
+   phase 4's inputs, both table kinds; its masks must also equal each
+   query of K2;
 7. per-light frames at 640x480 with the K3 counter reset just before:
    terrain8 with fused_shadows=False must equal the fused frame bit for
    bit, and terrain8_lights3 (2 point + 1 directional light) from the
@@ -1187,7 +1190,6 @@ def main(argv=None) -> int:
             f"random {N_RANDOM}": (o_rand, d_rand),
             "degenerate": _degenerate(o_rand, d_rand,
                                       data.tables.inst_f32[:, :6])}
-    primary_hit = {}
     for tname, tdata in (("box", data), ("template", data_tmpl)):
         todo = dict(rays)
         if tname == "box":
@@ -1200,32 +1202,44 @@ def main(argv=None) -> int:
                 f"K1 {tname}/{rname}", hk, hp))
             print(f"K1 {tname:8s} {rname:18s}: {int(hk.valid.sum())} hits, "
                   "every output identical to plain")
-            if rname == f"primary {main_key}":
-                primary_hit[tname] = hk
 
     # ---- phase 4: K2 against its plain version ------------------------------
-    hit = primary_hit["box"]
-    t_safe = torch.where(hit.valid, hit.t, 1.0)
-    hit_pos = ro + t_safe[:, None] * rd
-    o1, d1, dist, o2, d2 = shadow_rays(scene, hit_pos, hit.valid)
-    d2 = d2.contiguous()
-    mt_inf = torch.full_like(dist, float("inf"))
-    occ_inputs = (o1, d1, dist, o2, d2, mt_inf)
+    def shadow_queries(o, d):  # a frame's two queries, as K2's inputs
+        hk = ce.bvh_cast(o, d, data)
+        t_safe = torch.where(hk.valid, hk.t, 1.0)
+        q = shadow_rays(scene, o + t_safe[:, None] * d, hk.valid)
+        return (q[0], q[1], q[2], q[3], q[4].contiguous(),
+                torch.full_like(q[2], float("inf")))
+
+    occ_inputs = shadow_queries(ro, rd)
+    o1, d1, dist = occ_inputs[:3]
+    mt_rand = torch.from_numpy(np.random.default_rng(2).uniform(
+        0.5, 12.0, N_RANDOM).astype(np.float32)).to(dev)
+    inf_rand = torch.full_like(mt_rand, float("inf"))
+    o_deg, d_deg = rays["degenerate"]
+    # K2's inputs: query 1 at finite max_t, query 2 at +inf
+    occ_sets = {
+        f"shadow {main_key}": occ_inputs,
+        f"shadow {big_key}": shadow_queries(ro_b, rd_b),
+        f"random {N_RANDOM}": (o_rand, d_rand, mt_rand, o_rand,
+                               (-d_rand).contiguous(), inf_rand),
+        "degenerate": (o_deg, d_deg, mt_rand, o_deg, d_deg, inf_rand)}
     for tname, tdata in (("box", data), ("template", data_tmpl)):
-        bk = ce.bvh_occlude2(*occ_inputs, tdata)
-        bp = ce.bvh_occlude2_reference(*occ_inputs, tdata)
-        torch.cuda.synchronize()
-        for q in range(2):
-            if not torch.equal(bk[q], bp[q]):
-                n = int((bk[q] != bp[q]).sum())
-                raise AssertionError(f"K2 {tname}: query {q + 1} mask "
-                                     f"differs on {n} rays")
-            errs["bvh_occlude2"] = max(
-                errs["bvh_occlude2"],
-                float((bk[q].float() - bp[q].float()).abs().max()))
-        print(f"K2 {tname:8s}: blocked {int(bk[0].sum())} (point, finite "
-              f"max_t) + {int(bk[1].sum())} (directional, +inf max_t) of "
-              f"{int(hit.valid.sum())} hits, masks identical")
+        for sname, q in occ_sets.items():
+            bk = ce.bvh_occlude2(*q, tdata)
+            bp = ce.bvh_occlude2_reference(*q, tdata)
+            torch.cuda.synchronize()
+            for k in range(2):
+                if not torch.equal(bk[k], bp[k]):
+                    n = int((bk[k] != bp[k]).sum())
+                    raise AssertionError(f"K2 {tname}/{sname}: query {k + 1} "
+                                         f"mask differs on {n} rays")
+                errs["bvh_occlude2"] = max(
+                    errs["bvh_occlude2"],
+                    float((bk[k].float() - bp[k].float()).abs().max()))
+            print(f"K2 {tname:8s} {sname:18s}: blocked {int(bk[0].sum())} "
+                  f"(finite max_t) + {int(bk[1].sum())} (+inf max_t) of "
+                  f"{q[0].shape[0]} rays, masks identical")
 
     # ---- phase 5: the main path ---------------------------------------------
     ce.bvh_cast.launches = 0
@@ -1275,11 +1289,7 @@ def main(argv=None) -> int:
         timing[key] = {"frame_ms_cuda": ms_cuda, "frame_ms_torch": ms_torch,
                        "primary_mrays_per_s_cuda": rays_n / ms_cuda / 1e3}
         ro_s, rd_s, _, _ = _frame_rays_blocked(cams[s], cfgs[s])
-        hk = ce.bvh_cast(ro_s, rd_s, data)
-        tp = torch.where(hk.valid, hk.t, 1.0)
-        sq = shadow_rays(scene, ro_s + tp[:, None] * rd_s, hk.valid)
-        occ = (sq[0], sq[1], sq[2], sq[3], sq[4].contiguous(),
-               torch.full_like(sq[2], float("inf")))
+        occ = occ_sets[f"shadow {key}"]
         walk_inputs[key] = (ro_s, rd_s, occ)
         timing[key].update({
             "k1_ms": _ms(lambda: ce.bvh_cast(ro_s, rd_s, data)),
@@ -1303,24 +1313,24 @@ def main(argv=None) -> int:
               f"{t['k2_device_ms']:.4f}, K3 {t['k3_device_ms']:.4f} ms")
     # ---- phase 6: K3 against its plain version and K2 -----------------------
     errs["bvh_occlude"] = 0.0
-    single = (("point", (o1, d1, dist)), ("directional", (o2, d2, mt_inf)))
     for tname, tdata in (("box", data), ("template", data_tmpl)):
-        pair = ce.bvh_occlude2(*occ_inputs, tdata)
-        for q, (lname, (o, d, mt)) in enumerate(single):
-            bk = ce.bvh_occlude(o, d, mt, tdata)
-            bp = ce.bvh_occlude_reference(o, d, mt, tdata)
-            torch.cuda.synchronize()
-            for other, what in ((bp, "its plain version"),
-                                (pair[q], f"K2 query {q + 1}")):
-                if not torch.equal(bk, other):
-                    n = int((bk != other).sum())
-                    raise AssertionError(f"K3 {tname}/{lname}: mask differs "
-                                         f"from {what} on {n} rays")
-            errs["bvh_occlude"] = max(errs["bvh_occlude"], float(
-                (bk.float() - bp.float()).abs().max()))
-            print(f"K3 {tname:8s} {lname:11s}: blocked {int(bk.sum())} of "
-                  f"{int(hit.valid.sum())} hits, mask identical to plain and "
-                  "to K2")
+        for sname, q in occ_sets.items():
+            pair = ce.bvh_occlude2(*q, tdata)
+            for k, lname in enumerate(("finite max_t", "+inf max_t")):
+                bk = ce.bvh_occlude(*q[3 * k:3 * k + 3], tdata)
+                bp = ce.bvh_occlude_reference(*q[3 * k:3 * k + 3], tdata)
+                torch.cuda.synchronize()
+                for other, what in ((bp, "its plain version"),
+                                    (pair[k], f"K2 query {k + 1}")):
+                    if not torch.equal(bk, other):
+                        n = int((bk != other).sum())
+                        raise AssertionError(
+                            f"K3 {tname}/{sname}/{lname}: mask differs from "
+                            f"{what} on {n} rays")
+                errs["bvh_occlude"] = max(errs["bvh_occlude"], float(
+                    (bk.float() - bp.float()).abs().max()))
+            print(f"K3 {tname:8s} {sname:18s}: both queries identical to "
+                  "plain and to K2")
 
     # ---- phase 7: per-light frames (the K3 path) ----------------------------
     world3 = rtt.generate(WORLD_LIGHTS3)

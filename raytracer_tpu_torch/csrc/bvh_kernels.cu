@@ -1,5 +1,5 @@
 // LBVH closest-hit cast (K1), fused two-light shadow query (K2) and
-// single shadow query (K3).
+// single shadow query (K3): walks of the implicit-heap LBVH, a ray a thread.
 //
 // Replaces the Pallas TPU kernels _bvh_cast_kernel, _bvh_occlude2_kernel and
 // _bvh_occlude_kernel (raytracer_tpu/render/pallas_engine.py:916, :1033 and
@@ -37,7 +37,27 @@
 //   it), so an inner node's children are both inner or both leaves.
 // * NaN-propagating min and max as one instruction each (bvh_walk.cuh),
 //   where they were a compare-compare-select: ten in every slab test.
-// K2 and K3 keep the per-thread walk, with skip_next in closed form.
+//
+// K2 and K3 (occlude_walk) take the same pair walk under a fixed max_t.
+// On terrain8's shadow queries every instance a ray tests blocks it, so a
+// walk is the path down to its first passing leaf plus the dead ends on
+// the way; the probe measured per-thread walks of up to 57 nodes and the
+// longest 1% of warps taking most of a 640x480 launch.  The pair walk
+// halves that chain (longest 28 steps).  An any-hit query is an OR over the
+// leaves it reaches, so the order is free and a kept vote never goes stale
+// (max_t is fixed): a pop needs no retest, and two leaves go through their
+// instances left first, the walk ending at a block.  A node row comes in
+// two 16-B loads (4-10% off K2's and K3's device time on an H100, in
+// turns; 52-56 registers).  K2 runs one walk a
+// query (2R threads, query-major: a warp holds one kind of query), not one
+// walk of the union of a pixel's two queries with two slab tests a node,
+// as the JAX kernel does to share node loads: on this card the nodes sit
+// in L1, and the union walk cost every lane the longer of its two walks.
+// A leaf is reached only through ancestors that vote: where 0 * inf makes
+// an ancestor's slab NaN, a leaf that lies wholly on one side of the origin
+// can pass its own gate only with a box hit at t = +inf (under max_t =
+// +inf); no walk reaches it, and the plain version gates each leaf by its
+// ancestors' votes so as to agree.
 //
 // K1 comes in three instantiations: the frame path's <false, false>;
 // <true, false>, kExactUv (the JAX kernel's exact_uv=True,
@@ -51,11 +71,16 @@
 // in shared memory with a fixed crew of blocks (slower at 1080p), box faces
 // looked up once at the end (no gain, and spills with the pair walk), a
 // warp-vote walk (its union of the lanes' walks is up to 1.23x the longest
-// lane's in the longest warps: more steps, not fewer).
+// lane's in the longest warps: more steps, not fewer); for K2 and K3, the
+// nearer child first (the smaller slab entry: no fewer steps, since every
+// passing leaf blocks, and 1.5-1.8x slower at 1080p) and K2's two walks one
+// after the other in one thread (its chain is both walks').
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (render/kernels.py).  No fast math:
 // IEEE division and square root, one rounding per operation.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -148,82 +173,98 @@ bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   if (kVisits) visits_out[r] = visits;
 }
 
+// The any-hit walk of K2 and K3: K1's pair walk under a fixed max_t.  An
+// any-hit query is an OR over the leaves whose own gates pass, and every
+// prune is conservative (a node's box holds its children's, max_t is fixed
+// for the ray, the walk leaves at the first block), so a walk that visits a
+// superset of those leaves, in any order, gives the plain version's mask;
+// a kept vote never goes stale, so a pop needs no retest.
+struct OccGate {
+  Slab s;
+  float tmin;
+  bool go;
+};
+
+__device__ __forceinline__ OccGate occ_gate(const Tables& tb, int total, int v,
+                                            const Ray& ray, float max_t) {
+  // a node row is 32 B, 32-B aligned (the wrapper checks the base): two
+  // vector loads where the compiler issues seven
+  const float4* row =
+      reinterpret_cast<const float4*>(tb.nodes + (total - v) * NODE_WIDTH);
+  const float4 lo = __ldg(row), hi = __ldg(row + 1);
+  const float node[7] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z};
+  OccGate g;
+  g.s = slab_terms(node, ray);
+  g.tmin = slab_entry(g.s);
+  const float tmax = slab_exit(g.s);
+  g.go = g.tmin <= tmax && tmax >= THRESHOLD && g.tmin <= max_t &&
+         g.s.inside && node[6] > 0.0f;
+  return g;
+}
+
+__device__ __forceinline__ bool occlude_walk(const Ray& ray, float max_t,
+                                             const Tables& tb) {
+  const int total = 2 * tb.n_leaves - 1;
+  // a leaf whose gate passed: does its instance block the ray?
+  auto leaf = [&](int u, const OccGate& g) {
+    if (!g.go) return false;
+    const int i = tb.ordering[total - u];
+    return i >= 0 && occlude_instance(i, g.s, ray, max_t, tb);
+  };
+  const OccGate root = occ_gate(tb, total, 1, ray, max_t);
+  if (tb.n_leaves == 1) return leaf(1, root);
+  if (!root.go) return false;
+  int v = 1;          // the entered node (its vote passed)
+  int depth = 0;      // of v
+  unsigned pend = 0;  // bit d: a right child at depth d still to enter
+  while (true) {
+    // both children of v, adjacent rows, two independent slab tests
+    const int c = 2 * v;
+    const OccGate g0 = occ_gate(tb, total, c, ray, max_t);
+    const OccGate g1 = occ_gate(tb, total, c + 1, ray, max_t);
+    if (c >= tb.n_leaves) {  // two leaves, the left first; a block ends
+      if (leaf(c, g0) || leaf(c + 1, g1)) return true;
+    } else if (g0.go || g1.go) {
+      if (g0.go && g1.go) pend |= 1u << (depth + 1);
+      v = g0.go ? c : c + 1;
+      ++depth;
+      continue;
+    }
+    // on to the deepest right child still to enter, or the end
+    if (pend == 0) return false;
+    const int d = 31 - __clz(pend);
+    pend &= ~(1u << d);
+    v = (v >> (depth - d)) | 1;
+    depth = d;
+  }
+}
+
+// K2: the two queries of a fused two-light round in one launch, one query
+// a thread: threads [0, n) take query 1 and [n, 2n) query 2, so a warp
+// holds one kind of query and each lane ends at its own block.
 __global__ void __launch_bounds__(kThreads)
 bvh_occlude2_kernel(const float* __restrict__ o1, const float* __restrict__ d1,
                     const float* __restrict__ mt1,
                     const float* __restrict__ o2, const float* __restrict__ d2,
                     const float* __restrict__ mt2, int n_rays, Tables tb,
                     bool* __restrict__ blk1_out, bool* __restrict__ blk2_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  const Ray r1 = load_ray(o1, d1, r);
-  const Ray r2 = load_ray(o2, d2, r);
-  const float max_t1 = mt1[r];
-  const float max_t2 = mt2[r];
-  bool blk1 = false, blk2 = false;
-
-  const int total = 2 * tb.n_leaves - 1;
-  int v = 1;
-  // the walk ends early once both queries are blocked
-  while (v > 0 && !(blk1 && blk2)) {
-    const int flat = total - v;
-    const float* node = tb.nodes + flat * NODE_WIDTH;
-    const bool node_ok = node[6] > 0.0f;
-    const Slab s1 = slab_terms(node, r1);
-    const float tmin1 = slab_entry(s1);
-    const float tmax1 = slab_exit(s1);
-    const bool hit1 = tmin1 <= tmax1 && tmax1 >= THRESHOLD && !blk1 &&
-                      tmin1 <= max_t1 && s1.inside && node_ok;
-    const Slab s2 = slab_terms(node, r2);
-    const float tmin2 = slab_entry(s2);
-    const float tmax2 = slab_exit(s2);
-    const bool hit2 = tmin2 <= tmax2 && tmax2 >= THRESHOLD && !blk2 &&
-                      tmin2 <= max_t2 && s2.inside && node_ok;
-    const bool is_leaf = v >= tb.n_leaves;
-    if (is_leaf && (hit1 || hit2)) {
-      const int i = tb.ordering[flat];
-      if (i >= 0) {
-        if (hit1) blk1 = occlude_instance(i, s1, r1, max_t1, tb);
-        if (hit2) blk2 = occlude_instance(i, s2, r2, max_t2, tb);
-      }
-    }
-    v = ((hit1 || hit2) && !is_leaf) ? 2 * v : skip_next(v);
-  }
-  blk1_out[r] = blk1;
-  blk2_out[r] = blk2;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 2 * n_rays) return;
+  const bool second = t >= n_rays;
+  const int r = second ? t - n_rays : t;
+  const Ray ray = load_ray(second ? o2 : o1, second ? d2 : d1, r);
+  const bool blk = occlude_walk(ray, (second ? mt2 : mt1)[r], tb);
+  (second ? blk2_out : blk1_out)[r] = blk;
 }
 
-// K3: one any-hit query per thread.  A subtree is pruned when its slab
-// entry lies beyond max_t or the slab test misses; the walk ends as soon as
-// the ray is blocked (the loop condition, so no visit tests !blk).
+// K3: one any-hit query a thread.
 __global__ void __launch_bounds__(kThreads)
 bvh_occlude_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                    const float* __restrict__ mt, int n_rays, Tables tb,
                    bool* __restrict__ blk_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  const Ray ray = load_ray(ro, rd, r);
-  const float max_t = mt[r];
-  bool blk = false;
-
-  const int total = 2 * tb.n_leaves - 1;
-  int v = 1;
-  while (v > 0 && !blk) {
-    const int flat = total - v;
-    const float* node = tb.nodes + flat * NODE_WIDTH;
-    const Slab s = slab_terms(node, ray);
-    const float tmin = slab_entry(s);
-    const float tmax = slab_exit(s);
-    const bool hit = tmin <= tmax && tmax >= THRESHOLD && tmin <= max_t &&
-                     s.inside && node[6] > 0.0f;
-    const bool is_leaf = v >= tb.n_leaves;
-    if (hit && is_leaf) {
-      const int i = tb.ordering[flat];
-      if (i >= 0) blk = occlude_instance(i, s, ray, max_t, tb);
-    }
-    v = (hit && !is_leaf) ? 2 * v : skip_next(v);
-  }
-  blk_out[r] = blk;
+  blk_out[r] = occlude_walk(load_ray(ro, rd, r), mt[r], tb);
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -284,12 +325,14 @@ extern "C" int rt_bvh_occlude2(const void* o1, const void* d1,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_leaves < 1 || (n_leaves & (n_leaves - 1)) || n_rays > INT_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   const rt::Tables tb{static_cast<const float*>(nodes),
                       static_cast<const int*>(ordering), n_leaves,
                       static_cast<const float*>(inst_f),
                       static_cast<const int*>(inst_i),
                       static_cast<const float*>(tmpl)};
-  rt::bvh_occlude2_kernel<<<rt::blocks_for(n_rays), rt::kThreads, 0,
+  rt::bvh_occlude2_kernel<<<rt::blocks_for(2 * n_rays), rt::kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o1), static_cast<const float*>(d1),
       static_cast<const float*>(mt1), static_cast<const float*>(o2),
@@ -306,6 +349,8 @@ extern "C" int rt_bvh_occlude(const void* ro, const void* rd, const void* mt,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_leaves < 1 || (n_leaves & (n_leaves - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const rt::Tables tb{static_cast<const float*>(nodes),
                       static_cast<const int*>(ordering), n_leaves,
                       static_cast<const float*>(inst_f),

@@ -3,8 +3,8 @@
 //
 // Each is the per-ray counterpart of a helper of the Pallas kernels in
 // raytracer_tpu/render/pallas_engine.py (_ray_recips, _slab_terms,
-// _quat_rotate_tile, _box_face_hit, _intersect_instance, _occlude_instance,
-// _skip_next) and of the plain versions in render/cuda_engine.py.  Every
+// _quat_rotate_tile, _box_face_hit, _intersect_instance, _occlude_instance)
+// and of the plain versions in render/cuda_engine.py.  Every
 // expression keeps their operation order: built with -fmad=false, each
 // operation rounds once, like the separately rounded torch ops of the plain
 // versions, so the two agree bit for bit.
@@ -392,15 +392,6 @@ __device__ __forceinline__ bool occlude_instance(int i, const Slab& s,
     if (th.ok && th.tt <= max_t) return true;
   }
   return false;
-}
-
-// _skip_next: next preorder node after v's subtree -- climb while v is a
-// right child (odd), then step to the sibling; 0 ends the walk.  In closed
-// form: drop v's trailing ones; what is left is a left child, or 0 when v
-// lay on the rightmost path (the loop's climb to the root).
-__device__ __forceinline__ int skip_next(int v) {
-  const int w = v >> (__ffs(~v) - 1);
-  return w == 0 ? 0 : w + 1;
 }
 
 }  // namespace rt

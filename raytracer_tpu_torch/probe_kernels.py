@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the hand-written kernels spend a launch: K6 (the MXU cast), K5 and
-K4 (the candidate-list any-hit and closest hit) and K1 (the LBVH closest hit).
+K4 (the candidate-list any-hit and closest hit), K1 (the LBVH closest hit)
+and K2/K3 (the LBVH shadow queries).
 
     python3 raytracer_tpu_torch/probe_kernels.py [--root DIR ...]
-                                                 [--frames-only] [--out F]
+                                                 [--frames-only | --walks-only]
+                                                 [--out F]
 
 On one GPU, at 640x480 and 1920x1080, for each ``--root`` (a checkout that
 holds ``raytracer_tpu_torch``; default: this one; name several to compare
@@ -11,14 +13,22 @@ trees in turns on one card, e.g. ``--root _checkout/parent --root . --root .
 --root _checkout/parent`` after ``git archive <commit> raytracer_tpu_torch |
 tar -x -C _checkout/parent``):
 
-* each tree's build: registers and spills of K1 and K4 (``-Xptxas -v``) and
+* each tree's build: registers and spills of K1-K4 (``-Xptxas -v``) and
   the blocks an SM holds by their registers;
 * K1 on terrain8's primary rays: per 32-ray warp (in launch order) the
   largest and the mean node visits of its lanes' per-thread walks (the plain
   version's ``work=`` counts) and the nodes of the union of its lanes' walks
   (what a warp-vote walk visits); then the whole launch and launches over
-  whole warps: the 1% of warps with the most visits, and the rest; K2 and
-  K3 on that frame's shadow queries;
+  whole warps: the 1% of warps with the most visits, and the rest;
+* K2 and K3 on that frame's shadow queries (the point light's at finite
+  max_t, the directional light's at +inf): per query and per warp the
+  longest and mean walk of the per-thread walk (the plain versions'
+  ``work=`` counts), of the pair walk (``cuda_engine.occlude_walk_replay``)
+  and, for K2, of the union walk of both queries; the share of rays that
+  the first instance they test blocks, and of parked rays (origin 1e30);
+  then K2, and K3 on each query, over the whole launch, the longest 1% of
+  warps and the rest, each held to its plain version;
+* the terrain8 frame (the main path: K1 and K2);
 * K4 on terrain6's primary rays: the whole launch, then its overflowed
   tiles (every instance walked), its listed tiles and its empty-list tiles,
   each with the list steps it walks;
@@ -38,7 +48,8 @@ and on terrain6:
 * the staging in front of K6 (``stage_mxu``), with the ``[T, K, 40]``
   column gather and, where the tree has it, without;
 * the frame on the cull and on the MXU cast (median of 10, CUDA events);
-  ``--frames-only`` times nothing else, for many turns of two trees.
+  ``--frames-only`` times the frames (terrain8's too) and nothing else,
+  for many turns of two trees.
 
 Every time is given twice: the wrapper under CUDA events (median of 10
 after a warm-up; includes the ctypes call and the output allocation) and the
@@ -65,8 +76,9 @@ import torch
 SIZES = [(640, 480), (1920, 1080)]
 REPS = 10
 WARP = 32
-# per size: K1's walk statistics, and K1's and K4's plain versions' hits
-# (the same for every tree)
+# per size: K1's, K2's and K3's walk statistics, and K1-K4's plain
+# versions' results (the same for every tree); "ce": this checkout's
+# cuda_engine, whose walk replays give the statistics
 _WALKS = {}
 
 
@@ -130,9 +142,10 @@ def _times(fn):
 
 def _ptxas(log):
     """``{kernel: {"registers": n, "spill_bytes": n}}`` from nvcc's
-    ``-Xptxas -v`` log, for the kernels whose name holds ``bvh_cast`` or
-    ``cull_cast``; each with the 128-thread blocks an SM holds by its
-    registers (65,536 an SM, given out per warp in steps of 256)."""
+    ``-Xptxas -v`` log, for the kernels whose name holds ``bvh_cast``,
+    ``bvh_occlude`` or ``cull_cast``; each with the 128-thread blocks an SM
+    holds by its registers (65,536 an SM, given out per warp in steps of
+    256)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
@@ -140,7 +153,8 @@ def _ptxas(log):
         if m:
             cur = m.group(1)
             continue
-        if cur is None or not ("bvh_cast" in cur or "cull_cast" in cur):
+        if cur is None or not any(k in cur for k in (
+                "bvh_cast", "bvh_occlude", "cull_cast")):
             continue
         rec = out.setdefault(cur, {"registers": None, "spill_bytes": 0})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -191,7 +205,8 @@ def _k1_walks(ce, ro, rd, data):
 def _k1(rtt, mod, root, dev, key, w, h, out):
     """K1 on terrain8's primary rays at ``w x h``: warp statistics of the
     walks, then the whole launch and the launches over the longest 1% of
-    warps and over the rest."""
+    warps and over the rest; K2 and K3 on the frame's shadow queries
+    (``_occ``)."""
     ce = mod("raytracer_tpu_torch.render.cuda_engine")
     engine = mod("raytracer_tpu_torch.render.engine")
     world = rtt.generate(os.path.join(root, "raytracer_tpu_torch", "worlds",
@@ -247,7 +262,7 @@ def _k1(rtt, mod, root, dev, key, w, h, out):
         out[f"k1_{sname}_{key}"] = r
         print(f"K1 {key} {sname:4s}: {int(mask.sum()):6d} warps: "
               f"{r['event_ms']:.4f} ms (device {r['device_ms']:.4f})")
-    # K2 and K3 on the frame's shadow queries: whole launches
+    # K2 and K3 on the frame's shadow queries
     hit = _WALKS[key + "_plain"]
     t = torch.where(hit.valid, hit.t, 1.0)
     o1, d1, dist, o2, d2 = mod("raytracer_tpu_torch.render.shading"
@@ -255,12 +270,124 @@ def _k1(rtt, mod, root, dev, key, w, h, out):
                                              hit.valid)
     occ = (o1, d1, dist, o2, d2.contiguous(),
            torch.full_like(dist, float("inf")))
-    for name, fn in (("k2", lambda: ce.bvh_occlude2(*occ, data)),
-                     ("k3", lambda: ce.bvh_occlude(*occ[:3], data))):
-        r = _times(fn)
-        out[f"{name}_{key}"] = r
-        print(f"{name.upper()} {key}: {r['event_ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f})")
+    _occ(ce, occ, data, dev, key, out)
+
+
+def _frame8(rtt, mod, root, dev, key, w, h, out):
+    """The main path's frame (terrain8 on the walk: K1 and K2)."""
+    engine = mod("raytracer_tpu_torch.render.engine")
+    world = rtt.generate(os.path.join(root, "raytracer_tpu_torch", "worlds",
+                                      "terrain8.json"))
+    scene = rtt.to_device(world.scene, dev)
+    cfg = world.config.replace(engine="cuda", width=w, height=h)
+    cam = rtt.to_device(mod("raytracer_tpu_torch.builder").scale_camera(
+        world.camera, w, world.config.width), dev)
+    ms = _event_ms(lambda: engine.render_frame(scene, cam, cfg))
+    out[f"frame_walk_{key}"] = ms
+    print(f"frame walk {key}: {ms:.3f} ms (median of {REPS})")
+
+
+def _warp_stats(x, live):
+    """Per 32-lane warp in launch order: the longest and the mean of ``x``
+    over the lanes, summarized over all warps and over the warps with a
+    lane in ``live`` (a ray that is not parked)."""
+    xw = x.view(-1, WARP)
+    vmax, vmean = xw.amax(-1).float(), xw.float().mean(-1)
+    lw = live.view(-1, WARP).any(-1)
+    return {"max": int(vmax.max()), "mean_of_warp_max": float(vmax.mean()),
+            "mean": float(vmean.mean()), "sum_warp_max": int(vmax.sum()),
+            "live_warps": int(lw.sum()),
+            "live_mean_of_warp_max": float(vmax[lw].mean()),
+            "live_mean": float(x[live].float().mean())}
+
+
+def _occ_walks(ce, occ, data):
+    """K2's and K3's walks on the shadow queries ``occ`` (K2's six
+    inputs): per query the per-thread walk's node visits (the plain
+    version's ``work=`` counts: one node a step), the pair walk's steps
+    (``cuda_engine.occlude_walk_replay``) and whether the first instance a
+    ray tests blocks it; K2's union
+    walk (both queries in one walk, one node a step, until both are
+    blocked); the parked share (origin 1e30)."""
+    R = occ[0].shape[0]
+    queries = {"point": occ[:3], "directional": occ[3:]}
+    parked = occ[0][:, 0] > 1e29
+    stats = {"rays": R, "parked_share": float(parked.float().mean())}
+    own = {}
+    for name, q in queries.items():
+        work = torch.zeros(R, len(ce.WORK_COLUMNS), dtype=torch.int64,
+                           device=q[0].device)
+        blk = ce.bvh_occlude_reference(*q, data, work=work)
+        own[name] = work[:, 0]
+        b, visits, first = ce.occlude_walk_replay(*q, data)
+        if not torch.equal(b, blk):
+            raise AssertionError(f"{name}: the pair walk's mask is not the "
+                                 "plain version's")
+        tested = int((first >= 0).sum())
+        stats[name] = {
+            "blocked": int(blk.sum()),
+            "per_thread": _warp_stats(work[:, 0], ~parked),
+            "pair_steps": _warp_stats((visits - 1) // 2, ~parked),
+            "tested": tested,
+            "first_blocks_share": float((first == 1).sum()) / max(1, tested)}
+    work = torch.zeros(R, len(ce.WORK_COLUMNS), dtype=torch.int64,
+                       device=occ[0].device)
+    ce.bvh_occlude2_reference(*occ, data, work=work)
+    union = work[:, 0] // 2  # two slab tests a node
+    longer = torch.maximum(own["point"], own["directional"])
+    stats["union"] = _warp_stats(union, ~parked)
+    stats["longer_own"] = _warp_stats(longer, ~parked)
+    stats["union_over_longer_own"] = float(union.sum() / longer.sum())
+    ranks = {"k2": union, "k3_point": own["point"],
+             "k3_directional": own["directional"]}
+    return stats, ranks
+
+
+def _occ(ce, occ, data, dev, key, out):
+    """K2 and K3 on the shadow queries: the walk statistics (once a size),
+    then each kernel's whole launch and its launches over whole warps --
+    the 1% of warps whose longest per-thread walk (K2: union walk) is the
+    longest, and the rest."""
+    here = _WALKS["ce"]  # this checkout's plain versions and replay
+    if key + "_occ" not in _WALKS:
+        stats, ranks = _occ_walks(here, occ, data)
+        top = {}
+        for name, x in ranks.items():
+            vmax = x.view(-1, WARP).amax(-1)
+            top[name] = torch.argsort(vmax, descending=True, stable=True)[
+                :max(1, vmax.numel() // 100)]
+            stats[f"top1_{name}_min_of_max"] = int(vmax[top[name]].min())
+        _WALKS[key + "_occ"] = (stats, top, {
+            "k2": here.bvh_occlude2_reference(*occ, data),
+            "k3_point": here.bvh_occlude_reference(*occ[:3], data),
+            "k3_directional": here.bvh_occlude_reference(*occ[3:], data)})
+        out[f"occ_walks_{key}"] = stats
+        print(f"K2/K3 walks {key}: {json.dumps(stats)}")
+    stats, top, plain = _WALKS[key + "_occ"]
+    lanes = torch.arange(WARP, device=dev)
+    nw = occ[0].shape[0] // WARP
+    for name, fn in (
+            ("k2", lambda q: ce.bvh_occlude2(*q, data)),
+            ("k3_point", lambda q: ce.bvh_occlude(*q[:3], data)),
+            ("k3_directional", lambda q: ce.bvh_occlude(*q[3:], data))):
+        got = fn(occ)
+        got = got if name != "k2" else torch.stack(got)
+        want = plain[name] if name != "k2" else torch.stack(plain[name])
+        out[f"{name}_differs_{key}"] = int((got != want).sum())
+        chosen = torch.zeros(nw, dtype=torch.bool, device=dev)
+        chosen[top[name]] = True
+        for sname, mask in (("all", torch.ones_like(chosen)),
+                            ("top1", chosen), ("rest", ~chosen)):
+            rows = (torch.nonzero(mask).flatten()[:, None] * WARP
+                    + lanes).flatten()
+            q = tuple(x[rows].contiguous() for x in occ)
+            r = _times(lambda: fn(q))
+            r.update(warps=int(mask.sum()))
+            out[f"{name}_{sname}_{key}"] = r
+            print(f"{name.upper()} {key} {sname:4s}: {int(mask.sum()):6d} "
+                  f"warps: {r['event_ms']:.4f} ms (device "
+                  f"{r['device_ms']:.4f}); differs from plain in "
+                  f"{out[f'{name}_differs_{key}']}")
 
 
 def _identical(hk, hp):
@@ -287,7 +414,7 @@ def _load(root):
         sys.path.remove(root)
 
 
-def probe(root, dev, smi, frames_only=False, logs=None):
+def probe(root, dev, smi, frames_only=False, logs=None, walks_only=False):
     rtt = _load(root)
     mod = importlib.import_module
     ce = mod("raytracer_tpu_torch.render.cuda_engine")
@@ -319,9 +446,12 @@ def probe(root, dev, smi, frames_only=False, logs=None):
     out["ptxas"] = logs.get(root)
     for name, rec in (logs.get(root) or {}).items():
         print(f"ptxas {name}: {rec}")
-    if not frames_only:
-        for w, h in SIZES:
+    for w, h in SIZES:
+        if not frames_only:
             _k1(rtt, mod, root, dev, f"{w}x{h}", w, h, out)
+        _frame8(rtt, mod, root, dev, f"{w}x{h}", w, h, out)
+    if walks_only:
+        return out
 
     for w, h in SIZES:
         key = f"{w}x{h}"
@@ -477,6 +607,8 @@ def main(argv=None) -> int:
                          "compare trees in turns); default: this one")
     ap.add_argument("--frames-only", action="store_true",
                     help="time the frames alone (many turns of two trees)")
+    ap.add_argument("--walks-only", action="store_true",
+                    help="terrain8's LBVH walks (K1-K3) alone")
     ap.add_argument("--out", default=None, help="write the numbers as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -487,7 +619,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip()
     logs = {}
-    results = [probe(os.path.abspath(r), dev, smi, args.frames_only, logs)
+    _load(here)
+    _WALKS["ce"] = importlib.import_module(
+        "raytracer_tpu_torch.render.cuda_engine")
+    results = [probe(os.path.abspath(r), dev, smi, args.frames_only, logs,
+                     args.walks_only)
                for r in (args.root or [here])]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

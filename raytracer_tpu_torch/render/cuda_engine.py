@@ -15,7 +15,7 @@ instances) lives in ``cull.py`` and shares this module's tables and helpers:
   replays the kernel's own walk (:func:`k1_walk_replay`).
 * K2 ``_bvh_occlude2_kernel`` -> :func:`bvh_occlude2` /
   :func:`bvh_occlude2_reference`: both shadow queries of a two-light round
-  in one walk.
+  in one launch (the kernel: one walk a query; :func:`occlude_walk_replay`).
 * K3 ``_bvh_occlude_kernel`` -> :func:`bvh_occlude` /
   :func:`bvh_occlude_reference`: one any-hit query (the per-light shadow).
 
@@ -25,7 +25,9 @@ instead of per 8x128 tile; votes are conservative and leaf updates use strict
 ``<`` in the same preorder, so hits equal the tile walk's.  Because every
 ancestor box contains its children exactly, the per-thread walk also equals a
 flat loop over the leaves in walk order (``ordering[n-1], ..., ordering[0]``)
-gated by each ray's own leaf-box test -- which is what the plain versions do.
+gated by each ray's own leaf-box test -- which is what the plain versions do;
+the any-hit ones also gate a leaf by its ancestors' votes, which differ only
+for a box hit at t = +inf (``_occlude_reference``).
 
 Every comparison, select and division is written in the kernels' order so
 that the CUDA code (built with ``-fmad=false``) and the separately rounded
@@ -46,7 +48,7 @@ from ..accel import build_lbvh
 from ..scene import RenderConfig, Scene
 from .cast import Hit
 from .cast_vjp import closest_hit, occlude2_detached, occlude_detached
-from .geometry import WorldGeometry
+from .geometry import WorldGeometry, mesh_boxes, mesh_of_triangles
 
 F32_NEG_BIG = -3.0e38
 F32_BIG = 3.0e38
@@ -117,10 +119,13 @@ class CastData:
 # tables
 # ---------------------------------------------------------------------------
 
-def _detect_box_meshes(scene: Scene):
-    """Per-mesh axis-aligned-box detection.  Returns ``(is_box [M] bool,
-    mat [M] i32, face_tri [M, 6] i32, face_of [T] i32, face_tri2 [M, 6]
-    i32)`` exactly as ``pallas_engine._detect_box_meshes`` does."""
+def _detect_box_meshes(scene: Scene, mesh_min: torch.Tensor,
+                       mesh_max: torch.Tensor):
+    """Per-mesh axis-aligned-box detection against the mesh boxes
+    ``mesh_min/max [M, 3]`` of the current vertices
+    (``geometry.mesh_boxes``).  Returns ``(is_box [M] bool, mat [M] i32,
+    face_tri [M, 6] i32, face_of [T] i32, face_tri2 [M, 6] i32)`` exactly
+    as ``pallas_engine._detect_box_meshes`` does with those boxes."""
     dev = scene.verts.device
     T = scene.tri_v.shape[0]
     M = scene.mesh_pos.shape[0]
@@ -132,14 +137,10 @@ def _detect_box_meshes(scene: Scene):
     vc = scene.verts[tri_v[:, 2]]
     tri_rows = torch.arange(T, dtype=torch.int32, device=dev)
     starts = scene.mesh_tri_start
-    ends = starts + scene.mesh_tri_count
-    in_mesh = ((tri_rows[None, :] >= starts[:, None])
-               & (tri_rows[None, :] < ends[:, None]))  # [M, T]
-    # argmax returns the first maximum, as jnp.argmax does
-    mesh_of = torch.argmax(in_mesh.to(torch.int32), dim=0)  # [T] i64
+    mesh_of, _ = mesh_of_triangles(scene)  # [T] i64
 
-    bmin = scene.mesh_aabb_min[mesh_of]  # [T,3]
-    bmax = scene.mesh_aabb_max[mesh_of]
+    bmin = mesh_min[mesh_of]  # [T,3]
+    bmax = mesh_max[mesh_of]
     scale = torch.clamp((bmax - bmin).amax(dim=-1, keepdim=True), min=1e-8)
     tol_s = tol * scale
 
@@ -226,8 +227,10 @@ def build_tables(scene: Scene, geom: WorldGeometry, *,
     inst_f32[:, _IF_BMAX:_IF_BMAX + 3] = geom.aabb_max
     inst_f32[:, _IF_POS:_IF_POS + 3] = p
     inst_f32[:, _IF_QUAT:_IF_QUAT + 4] = q
-    inst_f32[:, _IF_LMIN:_IF_LMIN + 3] = scene.mesh_aabb_min[mesh]
-    inst_f32[:, _IF_LMAX:_IF_LMAX + 3] = scene.mesh_aabb_max[mesh]
+    # the boxes of the current vertices (the stored fields may be stale)
+    mesh_min, mesh_max = mesh_boxes(scene)
+    inst_f32[:, _IF_LMIN:_IF_LMIN + 3] = mesh_min[mesh]
+    inst_f32[:, _IF_LMAX:_IF_LMAX + 3] = mesh_max[mesh]
 
     counts = scene.mesh_tri_count[mesh]
     tmpl_start = scene.mesh_tri_start[mesh]
@@ -239,7 +242,8 @@ def build_tables(scene: Scene, geom: WorldGeometry, *,
     inst_i32[:, _II_WTRI_START] = wtri_start
     inst_i32[:, _II_VALID] = 1
 
-    is_box_m, mat_m, face_tri_m, _, face_tri2_m = _detect_box_meshes(scene)
+    is_box_m, mat_m, face_tri_m, _, face_tri2_m = _detect_box_meshes(
+        scene, mesh_min, mesh_max)
     if exact_uv and not box_exact_uv:
         is_box_m = torch.zeros_like(is_box_m)
     ident_rot = ((torch.abs(q[:, 0]) < 1e-6) & (torch.abs(q[:, 1]) < 1e-6)
@@ -525,20 +529,21 @@ def _slab_vote(row, o, inv, par):
 
 
 class _WalkVisits:
-    """Slab tests of the kernels' stackless walk, counted from the plain
-    versions' leaf loop.  A kernel visits a node iff every ancestor voted
+    """The per-thread stackless walk's node visits, taken in the plain
+    versions' leaf loop: the rays that reach each leaf, and (into ``work``)
+    the slab tests.  A walk visits a node iff every ancestor voted
     and the walk has not ended; a node's vote reads the state (best t,
     blocked) the leaves before it in preorder left, which is the state the
     leaf loop holds before the node's leftmost leaf.  The leaves of the
     implicit heap all sit at one depth (``n_leaves`` is a power of two), so
     preorder visits them by falling flat index."""
 
-    def __init__(self, data: CastData, work: torch.Tensor, per_node: int):
+    def __init__(self, data: CastData, work: Optional[torch.Tensor]):
         n = data.n_leaves
         if n & (n - 1):
             raise ValueError(f"{n} leaves: the heap needs a power of two")
         self.n, self.total, self.nodes = n, 2 * n - 1, data.nodes
-        self.work, self.per_node = work, per_node
+        self.work = work  # None: the visits are not counted
         self.go = {}  # internal node -> rays that visited it and voted
 
     def enter_leaf(self, flat: int, vote, ended):
@@ -555,7 +560,8 @@ class _WalkVisits:
             else:  # a right child is its parent's last use
                 up = self.go.pop(u >> 1) if u & 1 else self.go[u >> 1]
                 seen = up & ~ended
-            self.work[:, 0] += seen * self.per_node
+            if self.work is not None:
+                self.work[:, 0] += seen
             if u < self.n:
                 self.go[u] = seen & vote(self.nodes[self.total - u])
         return seen
@@ -588,7 +594,7 @@ def bvh_cast_reference(ro: torch.Tensor, rd: torch.Tensor,
           torch.ones(R, dtype=f32, device=dev)]
     bmat = torch.zeros(R, dtype=torch.int32, device=dev)
 
-    walk = None if work is None else _WalkVisits(data, work, 1)
+    walk = None if work is None else _WalkVisits(data, work)
     never = torch.zeros(R, dtype=torch.bool, device=dev)
 
     def vote(row):  # a node's vote under the current best
@@ -736,13 +742,124 @@ def k1_walk_replay(ro: torch.Tensor, rd: torch.Tensor, data: CastData, *,
     return best.hit(), visits, stale
 
 
+def _occlude_rows(f, ii, tmpl, gate, tns, tfs, inside, o, d, max_t,
+                  max_tris: int, any_tmpl: bool, work=None):
+    """``_occlude_instance`` for rays ``[R]`` each against its own instance
+    (table rows ``f [R, 40]``, ``ii [R, 24]``) where ``gate`` (its box
+    test, the prune included) passed; ``tns, tfs, inside``: the slab terms
+    of the box that gate read.  Returns the rays it blocks within
+    ``[THRESHOLD, max_t]``.  ``work``: the triangle tests go to its ``tri``
+    column (the loop stops at the first block)."""
+    is_box = ii[:, _II_IS_BOX] > 0
+    tmin, tmax = _max3(tns), _min3(tfs)
+    t_hit = torch.where(tmin >= rm.THRESHOLD, tmin, tmax)
+    blk = (gate & is_box & (tmin <= tmax) & inside & (t_hit >= rm.THRESHOLD)
+           & (t_hit <= max_t))
+    if not any_tmpl:
+        return blk
+    _, lo, ld = _to_local(f, o, d)
+    start = ii[:, _II_TMPL_START]
+    count = ii[:, _II_TRI_COUNT]
+    tgate = gate & ~is_box
+    for j in range(max_tris):
+        if work is not None:
+            work[:, 3] += tgate & (j < count) & ~blk
+        row = tmpl[torch.clamp(start + j, max=tmpl.shape[0] - 1).long()]
+        tok, tt, _, _, _ = _template_tri(row, lo, ld)
+        blk = blk | (tgate & (j < count) & tok & (tt <= max_t))
+    return blk
+
+
+def occlude_walk_replay(ro: torch.Tensor, rd: torch.Tensor,
+                        max_t: torch.Tensor, data: CastData):
+    """K2's and K3's walk as their kernels run it (``csrc/bvh_kernels.cu``
+    ``occlude_walk``), every ray one step at a time: a step tests both
+    children of the node the ray entered; two leaves go through their
+    instances left first, and a block ends the walk; of two inner children
+    that both vote, the left is entered and the right's vote kept (it never
+    goes stale: max_t is fixed); with nothing to enter the ray pops to the
+    deepest right child kept.  Returns ``(blocked, visits, first)``, each
+    ``[R]``: ``blocked`` equals the plain version's mask,
+    ``visits`` counts the node boxes the walk tests (the root, then two a
+    step), ``first`` is 1 where the first instance the ray tests blocks it,
+    0 where it does not, -1 where the ray tests none."""
+    n, tab = data.n_leaves, data.tables
+    total = 2 * n - 1
+    R = ro.shape[0]
+    o = [ro[:, k] for k in range(3)]
+    d = [rd[:, k] for k in range(3)]
+    par, inv = _ray_recips(rd)
+    max_tris = int(tab.inst_i32[:, _II_TRI_COUNT].max())
+    any_tmpl = bool((tab.inst_i32[:, _II_IS_BOX] == 0).any())
+    blk = torch.zeros(R, dtype=torch.bool, device=ro.device)
+    first = torch.full((R,), -1, dtype=torch.long, device=ro.device)
+
+    def gate(u):
+        row = data.nodes[(total - u).clamp(0, total - 1)]
+        tns, tfs, inside = _slab_terms(row, o, inv, par)
+        tmin, tmax = _max3(tns), _min3(tfs)
+        go = ((tmin <= tmax) & (tmax >= rm.THRESHOLD) & (tmin <= max_t)
+              & inside & (row[:, 6] > 0.0))
+        return tns, tfs, inside, tmin, go
+
+    def leaf(u, g, lanes):
+        nonlocal blk, first
+        tns, tfs, inside, _, go = g
+        inst = data.ordering[(total - u).clamp(0, n - 1)].long()
+        test = lanes & go & (inst >= 0)
+        i = inst.clamp(min=0)
+        b = _occlude_rows(tab.inst_f32[i], tab.inst_i32[i], tab.tmpl, test,
+                          tns, tfs, inside, o, d, max_t, max_tris, any_tmpl)
+        first = torch.where(test & (first < 0), b.long(), first)
+        blk = blk | b
+        return b
+
+    one = torch.ones(R, dtype=torch.long, device=ro.device)
+    g = gate(one)
+    visits = one.clone()
+    if n == 1:
+        leaf(one, g, one > 0)
+        return blk, visits, first
+    v = torch.where(g[4], one, 0)
+    depth = torch.zeros_like(one)
+    pend = torch.zeros_like(one)
+    while bool((v > 0).any()):
+        live = v > 0
+        visits += 2 * live
+        c = 2 * v
+        g0, g1 = gate(c), gate(c + 1)
+        leaves = live & (c >= n)
+        blocked = leaf(c, g0, leaves)
+        blocked = blocked | leaf(c + 1, g1, leaves & ~blocked)
+        inner = live & ~leaves
+        go0, go1 = inner & g0[4], inner & g1[4]
+        down = go0 | go1
+        pend = torch.where(go0 & go1, pend | (1 << (depth + 1)), pend)
+        pop = live & ~down & ~blocked & (pend > 0)
+        # the deepest kept right child: pend's highest bit (frexp is exact)
+        top = torch.frexp(pend.clamp(min=1).double()).exponent.long() - 1
+        right = (v >> (depth - top).clamp(min=0)) | 1
+        v = torch.where(down, torch.where(go0, c, c + 1),
+                        torch.where(pop, right, torch.where(live, 0, v)))
+        depth = torch.where(down, depth + 1, torch.where(pop, top, depth))
+        pend = torch.where(pop, pend & ~(1 << top), pend)
+    return blk, visits, first
+
+
 def _occlude_reference(queries, data: CastData,
                        work: Optional[torch.Tensor] = None):
-    """Any-hit walk of ``queries`` (a list of ``(ro [R,3], rd [R,3], max_t
-    [R])``) over the leaves in walk order, sharing one leaf loop as K2
-    does.  A query is blocked iff some hit has ``THRESHOLD <= t <= max_t``.
-    Returns one bool ``[R]`` per query.  ``work``: see ``WORK_COLUMNS``,
-    summed over the queries (the walk ends once every query is blocked)."""
+    """Any-hit queries (a list of ``(ro [R,3], rd [R,3], max_t [R])``) over
+    the leaves in walk order, one shared leaf loop.  A query is blocked iff
+    a leaf that its walk reaches (every ancestor votes: the slab test
+    passes, its entry at most max_t) has a hit with ``THRESHOLD <= t <=
+    max_t``.  A leaf whose own gate passes has ancestors that pass too,
+    since a node's box holds its children's, except where 0 * inf makes an
+    ancestor's slab NaN (an origin on its plane, a direction component
+    whose reciprocal overflows) and the leaf's gives a box hit at t = +inf,
+    which counts only under max_t = +inf: that leaf is not reached, by the
+    kernels' walks or here.  Returns one bool ``[R]`` per query.
+    ``work``: see ``WORK_COLUMNS``, summed over the queries' own walks
+    (each ends at its first block, as K2 runs one walk a query)."""
     inst_f, inst_i, tmpl = (data.tables.inst_f32, data.tables.inst_i32,
                             data.tables.tmpl)
     is_box = (inst_i[:, _II_IS_BOX] > 0).cpu().tolist()
@@ -752,38 +869,31 @@ def _occlude_reference(queries, data: CastData,
         par, inv = _ray_recips(rd)
         qs.append(dict(o=[ro[:, k] for k in range(3)],
                        d=[rd[:, k] for k in range(3)], mt=mt,
-                       par=par, inv=inv,
+                       par=par, inv=inv, walk=_WalkVisits(data, work),
                        blk=torch.zeros(ro.shape[0], dtype=torch.bool,
                                        device=ro.device)))
-    walk = None if work is None else _WalkVisits(data, work, len(qs))
 
-    def vote(row):  # a node's vote: some unblocked query enters it
-        out = None
-        for qy in qs:
+    def vote(qy):  # a node's vote for query qy while it is not blocked
+        def of(row):
             tmin, ok = _slab_vote(row, qy["o"], qy["inv"], qy["par"])
-            hit = ok & ~qy["blk"] & (tmin <= qy["mt"]) & (row[6] > 0.0)
-            out = hit if out is None else out | hit
-        return out
+            return ok & ~qy["blk"] & (tmin <= qy["mt"]) & (row[6] > 0.0)
+        return of
 
     for flat, i in _leaves(data):
-        if walk:
-            ended = qs[0]["blk"]
-            for qy in qs[1:]:
-                ended = ended & qy["blk"]
-            seen = walk.enter_leaf(flat, vote, ended)
+        seen = [qy["walk"].enter_leaf(flat, vote(qy), qy["blk"])
+                for qy in qs]
         if i < 0:
             continue
-        for qy in qs:
+        for qy, reached in zip(qs, seen):
             o, d, mt, blk = qy["o"], qy["d"], qy["mt"], qy["blk"]
             tns, tfs, inside = _slab_terms(data.nodes[flat], o, qy["inv"],
                                            qy["par"])
             tmin = _max3(tns)
             tmax = _min3(tfs)
-            active = ((tmin <= tmax) & (tmax >= rm.THRESHOLD) & ~blk
+            active = (reached & (tmin <= tmax) & (tmax >= rm.THRESHOLD)
                       & (tmin <= mt) & inside)
-            if walk:
-                active_w = seen & active
-                work[:, 1 if is_box[i] else 2] += active_w
+            if work is not None:
+                work[:, 1 if is_box[i] else 2] += active
             if is_box[i]:
                 # blocked iff the slab hit time lands in [THRESHOLD, max_t]
                 t_hit = torch.where(tmin >= rm.THRESHOLD, tmin, tmax)
@@ -793,8 +903,8 @@ def _occlude_reference(queries, data: CastData,
                 _, lo, ld = _to_local(inst_f[i], o, d)
                 tmpl_start, tri_count = tri_info[i]
                 for j in range(tri_count):
-                    if walk:  # the triangle loop stops at the first block
-                        work[:, 3] += active_w & ~blk
+                    if work is not None:  # the loop stops at the first block
+                        work[:, 3] += active & ~blk
                     ok, tt, _, _, _ = _template_tri(tmpl[tmpl_start + j],
                                                     lo, ld)
                     blk = blk | (active & ok & (tt <= mt))
@@ -851,6 +961,8 @@ def _check_data(data: CastData, device):
     n = data.n_leaves
     _check("nodes", data.nodes, torch.float32, (2 * n - 1, _NODE_WIDTH),
            device)
+    if data.nodes.data_ptr() % 16:  # K2 and K3 load a row in 16-B pieces
+        raise ValueError("nodes: must be 16-byte aligned")
     _check("ordering", data.ordering, torch.int32, (n,), device)
 
 

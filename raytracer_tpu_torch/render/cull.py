@@ -347,26 +347,13 @@ def cull_occlude_reference(ro, rd, max_t, cand, info, tile: int,
         tmax = ce._min3(tfs)
         active = (live & (ii[:, ce._II_VALID] > 0) & (tmin <= tmax)
                   & (tmax >= rm.THRESHOLD) & ~blk & (tmin <= max_t) & inside)
-        is_box = ii[:, ce._II_IS_BOX] > 0
         if work is not None:
+            is_box = ii[:, ce._II_IS_BOX] > 0
             work[:, 0] += live & ~blk
             work[:, 1] += active & is_box
             work[:, 2] += active & ~is_box
-        t_hit = torch.where(tmin >= rm.THRESHOLD, tmin, tmax)
-        blk = blk | (active & is_box & (tmin <= tmax) & inside
-                     & (t_hit >= rm.THRESHOLD) & (t_hit <= max_t))
-        if not any_tmpl:
-            continue
-        _, lo, ld = ce._to_local(f, o, d)
-        start = ii[:, ce._II_TMPL_START]
-        count = ii[:, ce._II_TRI_COUNT]
-        tgate = active & ~is_box
-        for j in range(max_tris):
-            if work is not None:
-                work[:, 3] += tgate & (j < count) & ~blk
-            row = tmpl[torch.clamp(start + j, max=tmpl.shape[0] - 1).long()]
-            tok, tt, _, _, _ = ce._template_tri(row, lo, ld)
-            blk = blk | (tgate & (j < count) & tok & (tt <= max_t))
+        blk = blk | ce._occlude_rows(f, ii, tmpl, active, tns, tfs, inside,
+                                     o, d, max_t, max_tris, any_tmpl, work)
     return blk
 
 

@@ -3,6 +3,12 @@
 Counterpart of ``raytracer_tpu/render/geometry.py``: instances -> world-space
 triangle soup + per-instance AABBs (8 transformed corners), and the pinhole
 camera's rays through integer pixel corners (reference camera.cu:33-42).
+
+The mesh boxes come from the vertices each frame (:func:`mesh_boxes`), not
+from ``Scene.mesh_aabb_min/max``: the stored fields are the loader's and do
+not follow an edit of ``verts`` (a vertex step, a scaled scene), and a box
+that no longer bounds its geometry makes which hits a traversal finds depend
+on how it votes.
 """
 
 from __future__ import annotations
@@ -31,6 +37,36 @@ class WorldGeometry:
     aabb_max: torch.Tensor  # [N,3]
 
 
+def mesh_of_triangles(scene: Scene):
+    """``(mesh [T] i64, owned [T] bool)``: the first mesh whose triangle
+    range ``[mesh_tri_start, + mesh_tri_count)`` holds each triangle row
+    (``jnp.argmax``'s first maximum), and whether any does."""
+    rows = torch.arange(scene.tri_v.shape[0], device=scene.tri_v.device)
+    starts = scene.mesh_tri_start
+    in_mesh = ((rows[None, :] >= starts[:, None])
+               & (rows[None, :] < (starts + scene.mesh_tri_count)[:, None]))
+    return torch.argmax(in_mesh.to(torch.int32), dim=0), in_mesh.any(dim=0)
+
+
+@torch.no_grad()
+def mesh_boxes(scene: Scene):
+    """Each mesh's local AABB ``(min [M,3], max [M,3])`` over the vertices
+    its triangles reference, as ``SceneBuilder`` computes
+    ``mesh_aabb_min/max`` (a mesh without triangles keeps zeros), from the
+    current ``verts``.  Boxes are culling data: no gradient flows through
+    them (the casts' VJPs reach ``verts`` through the triangles)."""
+    M = scene.mesh_tri_start.shape[0]
+    mesh, owned = mesh_of_triangles(scene)
+    # one entry per vertex reference; unowned triangles go to a spare row
+    seg = torch.where(owned, mesh, M).repeat_interleave(3)[:, None].expand(
+        -1, 3)
+    vals = scene.verts[scene.tri_v.long().reshape(-1)]
+    zeros = scene.verts.new_zeros(M + 1, 3)
+    lo = zeros.scatter_reduce(0, seg, vals, "amin", include_self=False)
+    hi = zeros.scatter_reduce(0, seg, vals, "amax", include_self=False)
+    return lo[:M], hi[:M]
+
+
 def expand_geometry(scene: Scene) -> WorldGeometry:
     """World position of a mesh-local vertex v is
     ``inst.from_local(mesh.from_local(v))`` with ``from_local(v) =
@@ -55,8 +91,9 @@ def expand_geometry(scene: Scene) -> WorldGeometry:
 
     # Per-instance world AABBs: fit all 8 transformed mesh-box corners.
     imesh = scene.inst_mesh.long()
-    bmin = scene.mesh_aabb_min[imesh]  # [N,3]
-    bmax = scene.mesh_aabb_max[imesh]
+    mesh_min, mesh_max = mesh_boxes(scene)
+    bmin = mesh_min[imesh]  # [N,3]
+    bmax = mesh_max[imesh]
     corners = []
     for sx in (0, 1):
         for sy in (0, 1):

@@ -10,7 +10,9 @@ K1 and K4 must give the plain version's hits exactly (valid, t, triangle,
 uv, normal, material; also at 1080p, on K4's overflowed, empty-list and
 degenerate tiles, on terrain8 forced onto the cull and for ray counts off
 the 32- and 128-ray grid); K2's, K3's and K5's
-masks must be identical (K3's also to K2's; K5's also on overflowed tiles,
+masks must be identical (K2's and K3's on both frames' shadow queries, on
+random and degenerate rays at finite and +inf max_t; K3's also to K2's;
+K5's also on overflowed tiles,
 parked lanes and degenerate rays); K6's t, id, u and v must equal its plain
 version's (listed, dense and sky tiles, ties between a tile's chunks); a frame through the kernels must equal the ``"torch"``
 engine at atol 1e-5 (terrain8 on the LBVH walk, terrain6 on the cull and on
@@ -137,22 +139,50 @@ def test_bvh_cast_kernel_hard_inputs(gpu_world, case):
     assert int(hk.valid.sum()) > 0
 
 
-def _shadow_queries(gpu_world):
-    """The primary frame's two shadow queries: to the point light (finite
-    max_t) and along the directional light (+inf), as K2's six inputs."""
-    ro, rd = gpu_world["rays"]["primary"]
-    hit = ce.bvh_cast(ro, rd, gpu_world["data"]["box"])
-    t = torch.where(hit.valid, hit.t, 1.0)
-    o1, d1, dist, o2, d2 = shadow_rays(gpu_world["scene"],
-                                       ro + t[:, None] * rd, hit.valid)
-    return (o1, d1, dist, o2, d2.contiguous(), torch.full_like(dist, np.inf))
+def _shadow_queries(gpu_world, case="shadow"):
+    """K2's six inputs, query 1 at finite max_t and query 2 at +inf: a
+    frame's two shadow queries (to the point light and along the
+    directional light; ``shadow`` at 160x120, ``shadow_1080p`` at
+    1920x1080), the random rays at seeded random max_t and reversed at
+    +inf, or degenerate rays made from them at both."""
+    data = gpu_world["data"]["box"]
+    if case.startswith("shadow"):
+        ro, rd = gpu_world["rays"]["primary"]
+        scene = gpu_world["scene"]
+        if case == "shadow_1080p":
+            cfg = gpu_world["cfg"].replace(width=1920, height=1080)
+            w = rtt.generate(WORLD)
+            cam = rtt.to_device(scale_camera(w.camera, 1920, w.config.width),
+                                ro.device)
+            ro, rd, _, _ = _frame_rays_blocked(cam, cfg)
+        hit = ce.bvh_cast(ro, rd, data)
+        t = torch.where(hit.valid, hit.t, 1.0)
+        o1, d1, dist, o2, d2 = shadow_rays(scene, ro + t[:, None] * rd,
+                                           hit.valid)
+        return (o1, d1, dist, o2, d2.contiguous(),
+                torch.full_like(dist, np.inf))
+    o, d = gpu_world["rays"]["random"]
+    mt = torch.from_numpy(np.random.default_rng(2).uniform(
+        0.5, 12.0, o.shape[0]).astype(np.float32)).to(o.device)
+    inf = torch.full_like(mt, np.inf)
+    if case == "random":
+        return (o, d, mt, o, (-d).contiguous(), inf)
+    assert case == "degenerate"
+    o, d = _degenerate(o, d, data.tables.inst_f32[:, :6])
+    return (o, d, mt, o, d, inf)
+
+
+OCC_CASES = ["shadow", "shadow_1080p", "random", "degenerate"]
 
 
 @pytest.mark.parametrize("tables", ["box", "template"])
-def test_bvh_occlude2_kernel_matches_plain(gpu_world, tables):
-    q = _shadow_queries(gpu_world)
+@pytest.mark.parametrize("case", OCC_CASES)
+def test_bvh_occlude2_kernel_matches_plain(gpu_world, tables, case):
+    q = _shadow_queries(gpu_world, case)
     data = gpu_world["data"][tables]
+    before = ce.bvh_occlude2.launches
     bk = ce.bvh_occlude2(*q, data)
+    assert ce.bvh_occlude2.launches == before + 1
     bp = ce.bvh_occlude2_reference(*q, data)
     torch.cuda.synchronize()
     for a, b in zip(bk, bp):
@@ -162,8 +192,9 @@ def test_bvh_occlude2_kernel_matches_plain(gpu_world, tables):
 
 @pytest.mark.parametrize("tables", ["box", "template"])
 @pytest.mark.parametrize("max_t", ["finite", "inf"])
-def test_bvh_occlude_kernel_matches_plain(gpu_world, tables, max_t):
-    q = _shadow_queries(gpu_world)
+@pytest.mark.parametrize("case", OCC_CASES)
+def test_bvh_occlude_kernel_matches_plain(gpu_world, tables, max_t, case):
+    q = _shadow_queries(gpu_world, case)
     data = gpu_world["data"][tables]
     k = 0 if max_t == "finite" else 1
     o, d, mt = q[3 * k: 3 * k + 3]
@@ -176,6 +207,36 @@ def test_bvh_occlude_kernel_matches_plain(gpu_world, tables, max_t):
     assert bk.dtype == torch.bool and torch.equal(bk, bp)
     assert torch.equal(bk, pair[k])
     assert 0 < int(bk.sum()) < bk.numel()
+
+
+def test_walk_kernels_on_one_leaf(gpu_world):
+    """A world of one cube: its LBVH is one leaf, the root (the kernels'
+    ``n_leaves == 1`` branch); K1's hits and K2's and K3's masks equal
+    their plain versions on seeded rays through and around the cube."""
+    from raytracer_tpu_torch.builder import make_grid_world
+
+    dev = gpu_world["cam"].pos.device
+    world, _, cfg = make_grid_world(1)
+    scene = rtt.to_device(world, dev)
+    data = ce.prepare_cast(scene, expand_geometry(scene),
+                           cfg.replace(pallas_traversal="bvh"))
+    assert data.n_leaves == 1
+    rng = np.random.default_rng(4)
+    o = rng.uniform(-3.0, 4.0, (4096, 3)).astype(np.float32)
+    d = rng.uniform(-0.6, 0.6, (4096, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    mt = torch.from_numpy(rng.uniform(0.5, 8.0, 4096).astype(
+        np.float32)).to(dev)
+    inf = torch.full_like(mt, np.inf)
+    hk = ce.bvh_cast(o, d, data)
+    bk = ce.bvh_occlude2(o, d, mt, o, d, inf, data)
+    b3 = ce.bvh_occlude(o, d, mt, data)
+    torch.cuda.synchronize()
+    _assert_same_hits(hk, ce.bvh_cast_reference(o, d, data))
+    bp = ce.bvh_occlude2_reference(o, d, mt, o, d, inf, data)
+    assert torch.equal(bk[0], bp[0]) and torch.equal(bk[1], bp[1])
+    assert torch.equal(b3, bp[0]) and 0 < int(b3.sum()) < b3.numel()
 
 
 def test_per_light_frame_equals_fused(gpu_world):
@@ -224,11 +285,23 @@ def test_wrappers_reject_bad_inputs(gpu_world):
         ce.bvh_cast(o.t().contiguous().t(), d, data)
     with pytest.raises(ValueError):
         ce.bvh_cast(o.cpu(), d, data)
-    # K1's pair walk needs every leaf at one depth: a power of two of them
+    # the pair walks need every leaf at one depth: a power of two of them
     three = ce.CastData(data.tables, data.nodes[-5:].contiguous(),
                         data.ordering[:3].contiguous())
+    mt = torch.full((o.shape[0],), 4.0, device=o.device)
     with pytest.raises(RuntimeError):
         ce.bvh_cast(o, d, three)
+    with pytest.raises(RuntimeError):
+        ce.bvh_occlude(o, d, mt, three)
+    with pytest.raises(RuntimeError):
+        ce.bvh_occlude2(o, d, mt, o, d, mt, three)
+    # K2 and K3 load a node row in two 16-byte pieces
+    flat = torch.empty(data.nodes.numel() + 1, device=o.device)
+    shifted = flat[1:].view(data.nodes.shape)
+    shifted.copy_(data.nodes)
+    with pytest.raises(ValueError):
+        ce.bvh_occlude(o, d, mt, ce.CastData(data.tables, shifted,
+                                             data.ordering))
 
 
 # ---------------------------------------------------------------------------

@@ -677,25 +677,35 @@ def _skip_next(v):
     return torch.where(v == 1, 0, v + 1)
 
 
-def test_skip_next_closed_form_equals_the_loop():
-    """``bvh_walk.cuh``'s ``skip_next`` (K2, K3): ``w = v >> (__ffs(~v) -
-    1)``, then ``w == 0 ? 0 : w + 1`` -- for every heap index below 2**20.
-    (Ending with ``v == 1 ? 0 : v + 1`` on the shifted value would send the
-    rightmost path, ``v = 2**k - 1``, back to node 1.)"""
-    v = torch.arange(1, 1 << 20, dtype=torch.int64)
+def _skip_next_closed(v):
+    """``_skip_next`` in closed form (the per-thread walk's next node):
+    drop ``v``'s trailing ones, ``w = v >> (__ffs(~v) - 1)``, then ``w ==
+    0 ? 0 : w + 1``."""
     low_zero = ~v & (v + 1)  # 1 << (__ffs(~v) - 1)
     w = v >> (torch.log2(low_zero.double()).round().long())
-    closed = torch.where(w == 0, 0, w + 1)
+    return torch.where(w == 0, 0, w + 1)
+
+
+def test_skip_next_closed_form_equals_the_loop():
+    """The closed form that ``_walk_in_lockstep`` takes for the next node
+    after a subtree equals the JAX package's loop (climb while a right
+    child, then the sibling) for every heap index below 2**20.  (Ending
+    with ``v == 1 ? 0 : v + 1`` on the shifted value would send the
+    rightmost path, ``v = 2**k - 1``, back to node 1.)"""
+    v = torch.arange(1, 1 << 20, dtype=torch.int64)
+    closed = _skip_next_closed(v)
     assert torch.equal(closed, _skip_next(v))
     assert int(closed[(1 << 10) - 2]) == 0  # v = 1023: the walk ends
 
 
 def _walk_in_lockstep(data, queries, closest):
     """The LBVH's per-thread stackless walk written out per ray, every ray
-    one node per step -- K2's and K3's kernels, and the walk whose visits
-    the plain versions count as K1's work: ``(work [R, 5], best t)`` of a
-    closest hit (``closest``, one query) or ``(work, blocked masks)`` of
-    K3/K2 (one or two queries, the walk ending once all are blocked)."""
+    one node per step (the pair walks of K1-K3 take at most as many
+    steps): the walk whose visits the plain versions count as work:
+    ``(work [R, 5], best t)`` of a closest hit (``closest``, one query) or
+    ``(work, blocked masks)`` of an any-hit walk (one query; two walk as
+    one, ending once both are blocked).  The next node after a subtree is
+    ``_skip_next``'s, in its closed form."""
     n, tab = data.n_leaves, data.tables
     total = 2 * n - 1
     R = queries[0][0].shape[0]
@@ -763,7 +773,7 @@ def _walk_in_lockstep(data, queries, closest):
                 new = new | (step & tok & (tt <= q["mt"]))
             q["blk"] = q["blk"] | new
         v = torch.where(live, torch.where(go & ~is_leaf, 2 * v,
-                                          _skip_next(v)), v)
+                                          _skip_next_closed(v)), v)
 
 
 @pytest.mark.parametrize("tables", ["box", "template"])
@@ -797,9 +807,11 @@ def test_walk_work_counts_follow_the_kernels_walk(world, tables, query):
         inf = torch.full((po.shape[0],), float("inf"))
         pair = ce.bvh_occlude2_reference(t(so), t(sd), t(mt), t(ro_),
                                          t(rd_), inf, data, work=work)
-        expect, masks = _walk_in_lockstep(
-            data, [(t(so), t(sd), t(mt)), (t(ro_), t(rd_), inf)], False)
-        assert all(torch.equal(a, b) for a, b in zip(masks, pair))
+        # K2 runs one walk a query: the counts are the two walks' sum
+        walks = [_walk_in_lockstep(data, [q], False) for q in
+                 ((t(so), t(sd), t(mt)), (t(ro_), t(rd_), inf))]
+        expect = walks[0][0] + walks[1][0]
+        assert all(torch.equal(w[1][0], b) for w, b in zip(walks, pair))
     assert torch.equal(work, expect)
     assert int(work[:, 0].min()) >= 1  # every walk tests the root
     kind = 1 if tables == "box" else 2

@@ -24,8 +24,15 @@ the CPU, with the same numpy-made inputs in both packages (the JAX side with
 * AD against a central difference of a uniform vertex scaling (spp=1, the
   close-up, yawed camera of ``tests/test_diff.py``, mesh boxes scaled with
   the vertices): both positive, and the port's AD/FD ratio equal to the JAX
-  package's to 1e-3 relative; with the vertices scaled alone (stale boxes,
-  ``test_diff.py``'s setup) the frames' difference is recorded;
+  package's to 1e-3 relative;
+* the vertices scaled alone (``test_diff.py``'s setup; the stored mesh
+  boxes stale): the port derives its boxes from the vertices
+  (``geometry.mesh_boxes``, bit-equal to the loader's on unedited worlds),
+  so its frames equal the JAX package's with the boxes scaled too (1e-5,
+  at s = -0.03, 0, +0.03), its FD and AD that package's, and its primary
+  hits the JAX brute-force oracle's on the stale scene; the JAX Pallas
+  cast with stale boxes finds hits outside a box only where its tile
+  voted (a reference-side quirk, recorded);
 * the material gather: its forward equal to eight row gathers, its
   blocked-sum backward equal to the gather's autograd.
 """
@@ -42,17 +49,21 @@ import torch
 import raytracer_tpu as jrt
 from raytracer_tpu import diff as jdiff
 from raytracer_tpu import raymath as jrm
+from raytracer_tpu import synth
 from raytracer_tpu.builder import scale_camera as jscale_camera
 from raytracer_tpu.render import cast_vjp as jcast_vjp
+from raytracer_tpu.render.cast import make_brute_cast
 from raytracer_tpu.render import geometry as jgeometry
 from raytracer_tpu.render import pallas_engine as pe
 from raytracer_tpu.render.engine import render_frame as jrender_frame
 from raytracer_tpu.scene import device_scene
 
 from raytracer_tpu_torch import convert, diff, tree
+from raytracer_tpu_torch.builder import Material, SceneBuilder, TextureCoords
 from raytracer_tpu_torch.render import cuda_engine as ce
 from raytracer_tpu_torch.render import cull, geometry, shading
 from raytracer_tpu_torch.render.engine import make_cast, render_frame
+from raytracer_tpu_torch.scene import to_device
 
 torch.set_num_threads(2)
 
@@ -322,9 +333,8 @@ def _closeup_camera(jw, jscene, width):
 
 def _scaled(scene, s):
     """``scene`` with every mesh vertex scaled by ``1 + s``, and the mesh
-    bounding boxes with them: the instance boxes of the casts must bound
-    the geometry, or which hits a traversal finds depends on how it votes
-    (the JAX package's tile walk and the port's per-ray walk disagree)."""
+    bounding boxes with them: the JAX package reads the stored boxes, which
+    must bound the geometry (the port derives its own from the vertices)."""
     return dataclasses.replace(scene, verts=scene.verts * (1.0 + s),
                                mesh_aabb_min=scene.mesh_aabb_min * (1.0 + s),
                                mesh_aabb_max=scene.mesh_aabb_max * (1.0 + s))
@@ -372,55 +382,217 @@ def test_vertex_scaling_ad_over_fd_matches_jax(worlds):
     assert 0.5 < ad / fd < 1.6
 
 
-def test_vertex_scaling_with_stale_boxes_differs_from_jax(worlds):
-    """``tests/test_diff.py``'s own setup scales the vertices alone, which
-    leaves the mesh boxes stale in both packages.  A scaled-up cube is then
-    no box mesh (the template loop) and pokes out of its instance box: the
-    JAX package's tile walk tests a leaf's triangles for every ray of a
-    tile once one ray's box test passes, the port gates each ray by its own
-    box test, so the JAX frame has hits that the port's lacks.  This test
-    records that difference (ROADMAP Queue 3 item C): the frames agree at
-    s = 0 and s = -h (the geometry inside its boxes) and differ in 53
-    pixels at s = +h; the packages' AD (boxes fresh at s = 0) agree, and
-    their finite differences do not."""
+# ---------------------------------------------------------------------------
+# the vertices scaled alone: stale stored mesh boxes (ROADMAP Queue 3 C)
+# ---------------------------------------------------------------------------
+
+STEP = 0.03
+SCALES = (-STEP, 0.0, STEP)
+STALE_W, STALE_H = 96, 72
+# pixels of the JAX package's Pallas frame with stale boxes (its tile walk)
+# that differ from the exact frame at s = +STEP, on terrain8 96x72
+STALE_PALLAS_PIXELS = 0
+
+
+@pytest.fixture(scope="module")
+def stale(worlds):
+    """``tests/test_diff.py``'s setup: terrain8's vertices scaled by ``1 +
+    s`` alone, as the same numpy arrays in both packages, which leaves the
+    stored mesh boxes stale.  The JAX package gets the scene twice: with
+    the boxes scaled too (fresh, which bound the geometry; ``min(v) * f ==
+    min(v * f)`` for ``f > 0`` in every rounding) and stale.  Frames of the
+    close-up camera at 96x72 with ``edge_aware_grads``."""
     wd = worlds["terrain8"]
     jw, jscene = wd["jw"], wd["jscene"]
-    w, h = 96, 72
-    cam_np = _closeup_camera(jw, jscene, w)
+    cam_np = _closeup_camera(jw, jscene, STALE_W)
     jcam = jax.tree_util.tree_map(jnp.asarray, cam_np)
-    jcfg = jw.config.replace(width=w, height=h, edge_aware_grads=True,
-                             recurse_depth=0, edge_px=1.5, engine="pallas",
+    jcfg = jw.config.replace(width=STALE_W, height=STALE_H,
+                             edge_aware_grads=True, recurse_depth=0,
+                             edge_px=1.5, engine="pallas",
                              pallas_kernel="scalar")
-    cam = convert.camera_from_numpy(cam_np)
-    cfg = convert.config_from_jax(jcfg)
-    step = 0.03
-
-    def verts_only(scene, s):
-        return dataclasses.replace(scene, verts=scene.verts * (1.0 + s))
-
-    losses, j_losses = {}, {}
-    for s, n_differ in ((-step, 0), (0.0, 0), (step, 53)):
-        jf = np.asarray(jrender_frame(verts_only(jscene, s), jcam, jcfg))
+    verts = np.asarray(jw.scene.verts, np.float32)
+    bmin = np.asarray(jw.scene.mesh_aabb_min, np.float32)
+    bmax = np.asarray(jw.scene.mesh_aabb_max, np.float32)
+    out = dict(wd=wd, jcam=jcam, jcfg=jcfg, cam=convert.camera_from_numpy(
+        cam_np), cfg=convert.config_from_jax(jcfg), scenes={}, frames={},
+        jframes={})
+    for s in SCALES:
+        f = np.float32(1.0 + s)
+        v = verts * f
+        fresh = dataclasses.replace(jscene, verts=jnp.asarray(v),
+                                    mesh_aabb_min=jnp.asarray(bmin * f),
+                                    mesh_aabb_max=jnp.asarray(bmax * f))
+        scene = dataclasses.replace(wd["scene"], verts=torch.from_numpy(v))
+        out["scenes"][s] = (scene, fresh, dataclasses.replace(
+            jscene, verts=jnp.asarray(v)))
+        out["jframes"][s] = np.asarray(jrender_frame(fresh, jcam, jcfg))
         with torch.no_grad():
-            frame = render_frame(verts_only(wd["scene"], torch.tensor(s)),
-                                 cam, cfg).numpy()
-        differ = np.abs(frame - jf).max(-1) > 1e-5
-        assert int(differ.sum()) == n_differ, (s, int(differ.sum()))
-        losses[s] = float(frame[..., :3].mean())
-        j_losses[s] = float(jf[..., :3].mean())
+            out["frames"][s] = render_frame(scene, out["cam"],
+                                            out["cfg"]).numpy()
+    return out
 
-    j_ad = float(jax.grad(lambda s: jnp.mean(jrender_frame(
-        verts_only(jscene, s), jcam, jcfg)[..., :3]))(0.0))
+
+@pytest.mark.parametrize("s", SCALES)
+def test_vertex_scaling_frame_equals_jax_with_fresh_boxes(stale, s):
+    """The port derives the mesh boxes from the vertices
+    (``geometry.mesh_boxes``), so with the vertices scaled alone its frame
+    is the JAX package's frame of the scene whose boxes were scaled too,
+    at the frame tolerance; those boxes are the port's bit for bit."""
+    scene, fresh, _ = stale["scenes"][s]
+    lo, hi = geometry.mesh_boxes(scene)
+    assert np.array_equal(lo.numpy(), np.asarray(fresh.mesh_aabb_min))
+    assert np.array_equal(hi.numpy(), np.asarray(fresh.mesh_aabb_max))
+    np.testing.assert_allclose(stale["frames"][s], stale["jframes"][s],
+                               rtol=0.0, atol=1e-5)
+
+
+def test_vertex_scaling_primary_hits_equal_brute_oracle(stale):
+    """At s = +STEP the scaled cubes poke out of their stale stored boxes:
+    the port's primary hits (the walk's plain version, exact_uv) equal the
+    JAX package's brute-force oracle on the stale scene, which reads no
+    box: valid exactly, t at rtol 1e-5 (the slab time against the plane
+    time; ``tests/test_pallas.py``'s ``_compare``), and the port's triangle
+    is one the ray hits at that t.  Neighbouring cubes now overlap, and the
+    top faces of two cubes of one height are coplanar: where both are hit
+    at one t the two casts may name either instance (a tie), so the box
+    face is compared where the instance agrees."""
+    scene, fresh, jstale = stale["scenes"][STEP]
+    ro, rd = jgeometry.camera_rays(stale["jcam"], STALE_W, STALE_H)
+    ro = np.array(ro, np.float32).reshape(-1, 3)
+    rd = np.array(rd, np.float32).reshape(-1, 3)
+    jgeom = jgeometry.expand_geometry(jstale)
+    hb = make_brute_cast(jgeom)(jnp.asarray(ro), jnp.asarray(rd))
+    cast = make_cast(scene, geometry.expand_geometry(scene), stale["cfg"])
+    with torch.no_grad():
+        hp = cast(torch.from_numpy(ro), torch.from_numpy(rd))
+    vb = np.asarray(hb.valid)
+    assert np.array_equal(hp.valid.numpy(), vb) and vb.sum() > 0
+    tb = np.asarray(hb.t)[vb]
+    np.testing.assert_allclose(hp.t.numpy()[vb], tb, rtol=1e-5)
+    wp, wb = hp.wtri.numpy()[vb], np.asarray(hb.wtri)[vb]
+    own, t_own, _ = jrm.ray_triangle_areas(
+        jnp.asarray(ro[vb]), jnp.asarray(rd[vb]), jgeom.a[wp], jgeom.b[wp],
+        jgeom.c[wp])
+    assert np.asarray(own).all()
+    np.testing.assert_allclose(np.asarray(t_own), tb, rtol=1e-5)
+    face_of = np.asarray(pe._detect_box_meshes(fresh)[3])
+    wtri_tri = np.asarray(jstale.wtri_tri)
+    inst = np.asarray(jgeom.inst)
+    same = inst[wp] == inst[wb]
+    print(f"stale boxes, s = +{STEP}: {int(vb.sum())} hits, "
+          f"{int((~same).sum())} ties between overlapping cubes")
+    assert np.array_equal(face_of[wtri_tri[wp[same]]],
+                          face_of[wtri_tri[wb[same]]])
+
+
+def test_vertex_scaling_fd_and_ad_equal_jax_with_fresh_boxes(stale):
+    """The vertices scaled alone: the port's central difference (h = STEP)
+    of the mean RGB is the JAX package's with the boxes scaled too, at rel
+    1e-4, and so is its AD at s = 0 (rel 1e-5)."""
+    fr, jf = stale["frames"], stale["jframes"]
+    fd = (float(fr[STEP][..., :3].mean()) - float(fr[-STEP][..., :3].mean())
+          ) / (2 * STEP)
+    j_fd = (float(jf[STEP][..., :3].mean()) - float(jf[-STEP][..., :3].mean())
+            ) / (2 * STEP)
+    jscene = stale["wd"]["jscene"]
+
+    def jloss(s):
+        return jnp.mean(jrender_frame(_scaled(jscene, s), stale["jcam"],
+                                      stale["jcfg"])[..., :3])
+
+    j_ad = float(jax.grad(jloss)(0.0))
     s0 = torch.zeros((), requires_grad=True)
+    scene = dataclasses.replace(stale["wd"]["scene"],
+                                verts=stale["wd"]["scene"].verts * (1.0 + s0))
     ad = float(torch.autograd.grad(torch.mean(render_frame(
-        verts_only(wd["scene"], s0), cam, cfg)[..., :3]), s0)[0])
-    fd = (losses[step] - losses[-step]) / (2 * step)
-    j_fd = (j_losses[step] - j_losses[-step]) / (2 * step)
-    print(f"vertex scaling, stale boxes, terrain8 {w}x{h}: AD {ad:.6g} FD "
-          f"{fd:.6g} AD/FD {ad / fd:.6g}; JAX package AD {j_ad:.6g} FD "
-          f"{j_fd:.6g} AD/FD {j_ad / j_fd:.6g}")
+        scene, stale["cam"], stale["cfg"])[..., :3]), s0)[0])
+    print(f"vertex scaling, vertices alone, terrain8 {STALE_W}x{STALE_H}: AD "
+          f"{ad:.6g} FD {fd:.6g}; JAX package, boxes scaled too: AD "
+          f"{j_ad:.6g} FD {j_fd:.6g}")
+    assert fd > 0.0
+    assert fd == pytest.approx(j_fd, rel=1e-4)
     assert ad == pytest.approx(j_ad, rel=1e-5)
-    assert fd < j_fd * 0.95  # the hits outside the stale boxes
+
+
+def test_vertex_scaling_with_stale_boxes_differs_from_jax(stale):
+    """A reference-side quirk, not the port's.  With the boxes stale, a
+    scaled-up cube is no box mesh (the template loop) and pokes out of its
+    instance box; the JAX package's Pallas tile walk tests a leaf's
+    triangles for every ray of a tile once one ray's box test passes, so
+    which of the hits outside the box it finds depends on its tiling.
+    Vertical rays through the sliver that the scaled border cube adds
+    beyond its stale box's +x face reach no stale box: alone in a tile the
+    JAX cast misses every one; with one ray through the cube's centre in
+    the same tile it finds them all.  The port's hits (and the brute
+    oracle's) are the same in both.  On the close-up frame the quirk shows
+    in STALE_PALLAS_PIXELS pixels at s = +STEP and none at s = -STEP, where
+    the geometry shrinks inside its stale boxes (ROADMAP, reference-side
+    faults)."""
+    for s, n_differ in ((-STEP, 0), (STEP, STALE_PALLAS_PIXELS)):
+        jf = np.asarray(jrender_frame(stale["scenes"][s][2], stale["jcam"],
+                                      stale["jcfg"]))
+        differ = np.abs(stale["frames"][s] - jf).max(-1) > 1e-5
+        assert int(differ.sum()) == n_differ, (s, int(differ.sum()))
+
+    scene, fresh, jstale = stale["scenes"][STEP]
+    jg_stale = jgeometry.expand_geometry(jstale)
+    lo_s, hi_s = (np.asarray(jg_stale.aabb_min), np.asarray(jg_stale.aabb_max))
+    hi_f = np.asarray(jgeometry.expand_geometry(fresh).aabb_max)
+    border = np.flatnonzero(hi_s[:, 0] == hi_s[:, 0].max())
+    k = border[np.argmax(hi_s[border, 1])]  # the top cube of a border column
+    assert hi_f[k, 0] > hi_s[k, 0]
+    n = 1024  # one tile of 8 x 128 rays
+    f = np.float32
+    x = np.linspace(hi_s[k, 0], hi_f[k, 0], n + 2, dtype=f)[1:-1]
+    z = np.linspace(lo_s[k, 2], hi_s[k, 2], n + 2, dtype=f)[1:-1]
+    o = np.stack([x, np.full(n, hi_f[k, 1] + 2.0, f), z], -1)
+    d = np.tile(f([0.0, -1.0, 0.0]), (n, 1))
+    centre = o[-1:].copy()
+    centre[0, 0] = f(0.5) * (lo_s[k, 0] + hi_s[k, 0])
+    o_mixed = np.concatenate([o[:-1], centre])
+    jcast = pe.make_pallas_cast(jstale, jg_stale, stale["jcfg"], tile_rows=8)
+    port = make_cast(scene, geometry.expand_geometry(scene), stale["cfg"])
+    brute = make_brute_cast(jg_stale)
+    for rays, j_hits in ((o, 0), (o_mixed, n)):
+        jh = jcast(jnp.asarray(rays), jnp.asarray(d))
+        hb = brute(jnp.asarray(rays), jnp.asarray(d))
+        with torch.no_grad():
+            hp = port(torch.from_numpy(rays), torch.from_numpy(d))
+        assert int(np.asarray(jh.valid).sum()) == j_hits
+        assert np.asarray(hb.valid).all() and hp.valid.all()
+        np.testing.assert_allclose(hp.t.numpy(), np.asarray(hb.t), rtol=1e-5)
+
+
+@pytest.mark.parametrize("world", ["terrain8", "terrain6", "spheres",
+                                   "random_meshes"])
+def test_mesh_boxes_equal_stored_boxes(worlds, world):
+    """``geometry.mesh_boxes`` of an unedited scene is bit-equal to the
+    loader's ``mesh_aabb_min/max``: on the terrains (box meshes), on the
+    JAX package's icosphere world (the template loop) and on a world of
+    seeded random triangles with an empty mesh and unreferenced vertices
+    (which keeps zeros, and which no box counts)."""
+    if world in worlds:
+        scene = worlds[world]["scene"]
+    elif world == "spheres":
+        scene = convert.scene_from_numpy(synth.make_sphere_world(8)[0])
+    else:
+        rng = np.random.default_rng(11)
+        sb = SceneBuilder()
+        mat = Material(kd=np.array([0.5, 0.5, 0.5, 1.0], np.float32))
+        for n_tris in (7, 0, 3):
+            mb = sb.get_mesh_builder(sb.create_mesh())
+            ids = [sb.add_vertex(v) for v in
+                   rng.uniform(-3, 3, (n_tris + 2, 3)).astype(np.float32)]
+            sb.add_vertex(np.float32([40.0, -40.0, 40.0]))  # unreferenced
+            for k in range(n_tris):
+                mb.add_triangle([ids[k], ids[k + 1], ids[k + 2]],
+                                TextureCoords(), mat)
+            sb.add_trans(mb)
+        scene = to_device(sb.finish(), "cpu")
+        assert torch.equal(scene.mesh_aabb_min[1], torch.zeros(3))
+    lo, hi = geometry.mesh_boxes(scene)
+    assert torch.equal(lo, scene.mesh_aabb_min)
+    assert torch.equal(hi, scene.mesh_aabb_max)
 
 
 # ---------------------------------------------------------------------------

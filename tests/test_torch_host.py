@@ -209,7 +209,7 @@ def test_build_tables_matches(worlds, exact_uv):
 def test_detect_box_meshes_matches(worlds):
     _, _, jscene, _, scene, _ = worlds
     jout = pe._detect_box_meshes(jscene)
-    tout = ce._detect_box_meshes(scene)
+    tout = ce._detect_box_meshes(scene, *geometry.mesh_boxes(scene))
     for j, t in zip(jout, tout):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     assert bool(tout[0].all())

@@ -283,3 +283,100 @@ def test_k1_pair_walk_equals_plain(setup, tables, rays):
     assert int(steps.sum()) < int(work[:, 0].sum())
     if rays == "primary":
         assert stale > 0
+
+
+# ---------------------------------------------------------------------------
+# K2's and K3's kernel walk, replayed in torch (csrc/bvh_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def _occlude_queries(setup, rays, data):
+    """Two queries ``(o, d, max_t)`` as torch tensors: the primary frame's
+    shadow queries (``_shadow_queries``), the seeded random rays, or
+    degenerate rays (``_degenerate_rays``); the latter two at seeded
+    random finite max_t (query 1) and at +inf (query 2)."""
+    if rays == "shadow":
+        return [_torch(q) for q in _shadow_queries(setup)]
+    if rays == "random":
+        o, d = setup["rays"]["random"]
+    else:
+        o, d = _degenerate_rays(rays, data)
+    mt = np.random.default_rng(9).uniform(0.5, 12.0, o.shape[0])
+    return [_torch((o, d, mt.astype(np.float32))),
+            _torch((o, d, np.full(o.shape[0], np.inf, np.float32)))]
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("tables", ["box", "template"])
+@pytest.mark.parametrize("rays", ["shadow", "random", "tiny_d",
+                                  "axis_parallel"])
+def test_occlude_pair_walk_equals_plain(setup, kernel, tables, rays):
+    """K2's and K3's walk (``cuda_engine.occlude_walk_replay``: both
+    children a step, the left entered first, the right's vote kept, a
+    block ends the walk) gives the plain version's masks, on degenerate
+    rays too (with the tiny directions at max_t = +inf, box hits at t =
+    +inf in leaves whose ancestors' slabs are NaN: no walk reaches them),
+    and takes no more steps than the per-thread walk that the plain
+    versions count (``_WalkVisits``) visits nodes: K3 per query and ray,
+    K2 (one walk a query) for both queries against their count's sum."""
+    data = setup["casts"][tables][1]
+    q1, q2 = _occlude_queries(setup, rays, data)
+    R = q1[0].shape[0]
+    walks = [ce.occlude_walk_replay(*q, data) for q in (q1, q2)]
+    steps = [(visits - 1) // 2 for _, visits, _ in walks]
+    if kernel == "K2":
+        work = torch.zeros(R, len(ce.WORK_COLUMNS), dtype=torch.long)
+        want = ce.bvh_occlude2_reference(*q1, *q2, data, work=work)
+        assert bool((steps[0] + steps[1] <= work[:, 0]).all())
+        assert int((steps[0] + steps[1]).sum()) < int(work[:, 0].sum())
+    else:
+        want = []
+        for q, s in zip((q1, q2), steps):
+            work = torch.zeros(R, len(ce.WORK_COLUMNS), dtype=torch.long)
+            want.append(ce.bvh_occlude_reference(*q, data, work=work))
+            assert bool((s <= work[:, 0]).all())
+            assert int(s.sum()) < int(work[:, 0].sum())
+    for (got, _, _), w in zip(walks, want):
+        assert torch.equal(got, w)
+        assert 0 < int(w.sum()) < R
+
+
+def _one_leaf():
+    """A world of one cube (``builder.make_grid_world(1)``) on the walk: its
+    LBVH is one leaf, the root; box tables and template tables."""
+    from raytracer_tpu_torch.builder import make_grid_world
+    from raytracer_tpu_torch.scene import to_device
+
+    world, _, cfg = make_grid_world(1)
+    scene = to_device(world, "cpu")
+    geom = geometry.expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, cfg.replace(pallas_traversal="bvh"))
+    assert data.n_leaves == 1
+    data_t = ce.CastData(tables=ce.build_tables(scene, geom, exact_uv=True),
+                         nodes=data.nodes, ordering=data.ordering)
+    return {"box": data, "template": data_t}
+
+
+@pytest.mark.parametrize("tables", ["box", "template"])
+def test_walks_on_one_leaf(tables):
+    """With one leaf the walks test the root alone and, where it passes,
+    its instance (the kernels' ``n_leaves == 1`` branch): K1's replay
+    gives the plain version's hits, K2's and K3's their masks, on seeded
+    rays through and around the cube at finite max_t and at +inf."""
+    data = _one_leaf()[tables]
+    rng = np.random.default_rng(4)
+    n = 512
+    o = rng.uniform(-3.0, 4.0, (n, 3)).astype(np.float32)
+    target = rng.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    want = ce.bvh_cast_reference(o, d, data)
+    got, visits, _ = ce.k1_walk_replay(o, d, data)
+    for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert bool((visits == 1).all()) and 0 < int(want.valid.sum()) < n
+    mt = torch.from_numpy(rng.uniform(0.5, 8.0, n).astype(np.float32))
+    for max_t in (mt, torch.full((n,), float("inf"))):
+        blk, visits, _ = ce.occlude_walk_replay(o, d, max_t, data)
+        assert torch.equal(blk, ce.bvh_occlude_reference(o, d, max_t, data))
+        assert bool((visits == 1).all()) and 0 < int(blk.sum()) < n

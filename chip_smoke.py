@@ -19,8 +19,9 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    at +inf, and the degenerate rays at both;
 5. render_frame with engine="cuda" at 640x480 and 1920x1080 with the launch
    counters reset just before, compared with engine="torch" on the card;
-   then timings with CUDA events: median frame ms of each engine, and
-   per-launch ms of each kernel against its plain version;
+   then timings with CUDA events: median frame ms of the cuda engine (the
+   torch engine's once), and per-launch ms of each kernel against its
+   plain version (median of 3);
 6. K3 (single shadow query) against its plain version on each query of
    phase 4's inputs, both table kinds; its masks must also equal each
    query of K2;
@@ -83,6 +84,35 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    bounds (the exact_uv branch's work counted by the plain versions: the
    box updates it runs on, ``work`` column ``exact``).
 
+19. terrain8_stress (570 instances: terrain8 plus a reflective cube type,
+   5x unit_length, depth 2: the pixel-aligned stream on the LBVH walk, K2
+   in every round) at 640x480 and 1920x1080 with every launch counter reset
+   just before: K1 and K2 launched, no other kernel; nothing dropped; the
+   live rays per round; at 640x480 the frame against the "torch" engine
+   (atol 1e-5), K1 on each later round's rays and K2 on each round's
+   shadow queries identical to their plain versions, and the per-light
+   frame (fused_shadows=False, K3) equal to the fused one bit for bit;
+   frame ms (median of 10), device busy, idle share and kernels per frame
+   at both sizes (torch.profiler, 3 frames);
+20. terrain8_mixed (760 instances: a reflective and a refractive type:
+   the compacted 2x stream and the transmissive shadow march through K1)
+   the same way: K1 alone launched; at 640x480 K1 identical to its plain
+   version on each later round's rays (the refracted rays that start
+   inside a glass box and take its exit face counted) and on the first
+   two steps of the point light's march;
+21. the 1080p fwd+bwd step on both (materials with kr, kt and eta,
+   lights, camera; zero target), counters reset just before: grads equal
+   to the "torch" engine's at rtol 1e-4 / atol 1e-6, step ms (median of 5)
+   and Mrays/s;
+22. the synthetic worlds (raytracer_tpu_torch/synth.py) at 128x96: the
+   mixed world on the cull (K4 alone: rounds and march), its frame against
+   the "torch" engine, K4 identical to its plain version on each later
+   round's rays, a drop count above 0 at queue_factor=0.02 and the frame at
+   auto_tile_caps' caps equal to the dense frame; the sphere world on the
+   cull (K4/K5) and on the MXU cast (K6), each against the "torch" engine;
+   the 4,096-instance big world on the walk (K1, K3) and forced onto the
+   cull (K4/K5), the two frames equal.
+
 Beside each kernel's ms per launch (CUDA events around the wrapper: the
 ctypes call and the output allocation included) the device time alone is
 printed, from a torch.profiler trace (every kernel and memset the wrapper
@@ -129,6 +159,8 @@ WORLDS = os.path.join(ROOT, "raytracer_tpu_torch", "worlds")
 WORLD = os.path.join(WORLDS, "terrain8.json")
 WORLD_LIGHTS3 = os.path.join(WORLDS, "terrain8_lights3.json")
 WORLD6 = os.path.join(WORLDS, "terrain6.json")
+WORLD_STRESS = os.path.join(WORLDS, "terrain8_stress.json")
+WORLD_MIXED = os.path.join(WORLDS, "terrain8_mixed.json")
 SOURCE = "raytracer_tpu_torch/csrc/bvh_kernels.cu"
 SOURCE_CULL = "raytracer_tpu_torch/csrc/cull_kernels.cu"
 SOURCE_MXU = "raytracer_tpu_torch/csrc/mxu_kernel.cu"
@@ -1106,6 +1138,328 @@ def _geomgrad(dev, smi, rays_random):
     return out
 
 
+def _kernel_wrappers():
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render import cull, mxu
+
+    return {"bvh_cast": ce.bvh_cast, "bvh_occlude2": ce.bvh_occlude2,
+            "bvh_occlude": ce.bvh_occlude, "cull_cast": cull.cull_cast,
+            "cull_occlude": cull.cull_occlude, "mxu_cast": mxu.mxu_cast}
+
+
+def _counted(label, fn, used):
+    """Run ``fn`` with every launch counter set to 0 just before and read
+    just after; every kernel of ``used`` must have launched, no other.
+    Returns ``(fn's result, counts)``."""
+    wrappers = _kernel_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in wrappers.items()}
+    for name, n in counts.items():
+        if (n > 0) != (name in used):
+            raise AssertionError(f"{label}: {name} launched {n} times "
+                                 f"(expected {'some' if name in used else 0})")
+    return out, {name: counts[name] for name in used}
+
+
+def _frame_checks(label, img, ref, size, atol=ATOL_FRAME):
+    """A frame of the right shape, finite, with hits, within ``atol`` of
+    ``ref``.  Returns the max abs difference."""
+    if tuple(img.shape) != (size[1], size[0], 4) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: shape {tuple(img.shape)} or "
+                             "non-finite values")
+    diff = float((img - ref).abs().max())
+    hit_share = float((img[..., :3].amax(-1) > 0.0).float().mean())
+    if diff > atol or hit_share <= 0.05:
+        raise AssertionError(f"{label}: max abs diff {diff} > {atol} or hit "
+                             f"share {hit_share}")
+    return diff
+
+
+def _bounces(dev, smi):
+    """Phases 19-23: the bounce rounds.  terrain8_stress (reflective: the
+    pixel-aligned stream, K1 and K2 in every round) and terrain8_mixed
+    (reflective and refractive: the compacted 2x stream, the transmissive
+    shadow march through K1) at both sizes, their 1080p steps, and the
+    synthetic worlds on every cast.  Returns the numbers for the report."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import raymath as rm
+    from raytracer_tpu_torch import synth, tree
+    from raytracer_tpu_torch.builder import scale_camera
+    from raytracer_tpu_torch.diff import (grad_of, make_loss_fn,
+                                          trainable_params)
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render import cull
+    from raytracer_tpu_torch.render import engine as eng
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+    from raytracer_tpu_torch.render.shading import shadow_rays
+
+    out = {"worlds": {}, "steps": {}, "synth": {}}
+    main, big = SIZES[0], SIZES[-1]
+    inf = float("inf")
+
+    def world(path):
+        w = rtt.generate(path)
+        scene = rtt.to_device(w.scene, dev)
+        cfg = w.config.replace(engine="cuda")
+        cams = {s: rtt.to_device(scale_camera(w.camera, s[0],
+                                              w.config.width), dev)
+                for s in SIZES}
+        return scene, cfg, cams
+
+    def rounds(scene, cam, cfg):
+        """Each round's queue (``radiance``'s ``on_round``) and the drop
+        count of one frame's rays."""
+        geom = expand_geometry(scene)
+        ro, rd, _, _ = eng._frame_rays_blocked(cam, cfg)
+        waves = []
+        _, dropped = eng.radiance(scene, geom, eng.make_cast(scene, geom, cfg),
+                                  cfg, ro, rd,
+                                  on_round=lambda r, st: waves.append(st))
+        return waves, int(dropped)
+
+    def cast_rays(w):
+        return (torch.where(w.active[:, None], w.o, 1e30).contiguous(),
+                w.d.contiguous())
+
+    def k1_equal(label, o, d, data):
+        hk = ce.bvh_cast(o, d, data)
+        _compare_hits(label, hk, ce.bvh_cast_reference(o, d, data))
+        return hk
+
+    # ---- phases 19-20: the two bounce terrains ------------------------------
+    used_of = {"terrain8_stress": ("bvh_cast", "bvh_occlude2"),
+               "terrain8_mixed": ("bvh_cast",)}
+    for name, path in (("terrain8_stress", WORLD_STRESS),
+                       ("terrain8_mixed", WORLD_MIXED)):
+        scene, cfg, cams = world(path)
+        rec = out["worlds"][name] = {"instances": scene.inst_pos.shape[0],
+                                     "triangles": scene.wtri_tri.shape[0]}
+        mixed = cfg.any_refractive
+        if not cfg.any_reflective or cfg.recurse_depth != 2:
+            raise AssertionError(f"{name}: not a reflective depth-2 world")
+        geom = expand_geometry(scene)
+        data = ce.prepare_cast(scene, geom, cfg)
+        if data.nodes is None:
+            raise AssertionError(f"{name} must take the LBVH walk")
+        print(f"{name}: {rec['instances']} instances, {rec['triangles']} "
+              f"world triangles, depth {cfg.recurse_depth}, "
+              f"{'compacted 2x stream, march' if mixed else 'aligned stream'}")
+        for s in SIZES:
+            key = f"{s[0]}x{s[1]}"
+            c = cfg.replace(width=s[0], height=s[1])
+            (img, stats), counts = _counted(
+                f"{name} {key}", lambda: eng.render_frame_with_stats(
+                    scene, cams[s], c), used_of[name])
+            waves, dropped = rounds(scene, cams[s], c)
+            live = [int(w.active.sum()) for w in waves]
+            if int(stats["dropped"]) != 0 or dropped != 0:
+                raise AssertionError(f"{name} {key}: dropped "
+                                     f"{int(stats['dropped'])}")
+            r = rec[key] = {"launches": counts, "live_rays": live,
+                            "queue": [w.active.shape[0] for w in waves],
+                            "dropped": 0}
+            if s == main:
+                t0 = time.perf_counter()
+                ref = eng.render_frame(scene, cams[s], c.replace(
+                    engine="torch"))
+                torch.cuda.synchronize()
+                r["frame_ms_torch_once"] = (time.perf_counter() - t0) * 1e3
+                r["max_abs_diff"] = _frame_checks(f"{name} {key}", img, ref, s)
+                img0 = eng.render_frame(scene, cams[s],
+                                        c.replace(recurse_depth=0))
+                r["bounce_pixels"] = int(
+                    ((img - img0).abs().amax(-1) > 1e-3).sum())
+                # every kernel on every round's rays
+                for i, w in enumerate(waves):
+                    o, d = cast_rays(w)
+                    hk = (k1_equal(f"{name} round {i}", o, d, data) if i
+                          else ce.bvh_cast(o, d, data))
+                    h_valid = w.active & hk.valid
+                    pos = w.o + torch.where(hk.valid, hk.t, 1.0)[:, None] * w.d
+                    if not mixed:
+                        q = shadow_rays(scene, pos, h_valid)
+                        q = (q[0], q[1], q[2], q[3], q[4].contiguous(),
+                             torch.full_like(q[2], inf))
+                        bk = ce.bvh_occlude2(*q, data)
+                        bp = ce.bvh_occlude2_reference(*q, data)
+                        for k in range(2):
+                            if not torch.equal(bk[k], bp[k]):
+                                raise AssertionError(
+                                    f"{name} round {i}: K2 query {k + 1} "
+                                    "differs from plain")
+                        print(f"{name} round {i}: {live[i]} live rays; K1 "
+                              f"{'== plain, ' if i else ''}K2 == plain "
+                              f"(blocked {int(bk[0].sum())} + "
+                              f"{int(bk[1].sum())})")
+                        continue
+                    inside = w.active & w.in_obj
+                    nd = rm.dot(hk.normal, w.d)
+                    exits = inside & hk.valid & (nd > 0.0)
+                    # the point light's march: K1 on its first two steps
+                    disp = scene.lights.point_pos[0] - pos
+                    dist, dirn = rm.norm(disp), rm.normalize(disp)
+                    cur = (torch.where(h_valid[:, None], pos, 1e30)
+                           + rm.THRESHOLD * dirn).contiguous()
+                    alive, left, marched = h_valid, dist, []
+                    for step in range(2):
+                        hm = k1_equal(f"{name} round {i} march {step}", cur,
+                                      dirn.contiguous(), data)
+                        t_m = torch.where(hm.valid, hm.t, 1.0)
+                        glass = (scene.materials.kt[hm.mat.long()]
+                                 > 0.0).any(-1)
+                        alive = alive & hm.valid & ~(t_m > left) & glass
+                        cur = torch.where(alive[:, None],
+                                          cur + t_m[:, None] * dirn, cur)
+                        left = torch.where(alive, left - t_m, left)
+                        marched.append(int(alive.sum()))
+                    r.setdefault("rounds", []).append({
+                        "live": live[i], "inside": int(inside.sum()),
+                        "exit_face": int(exits.sum()),
+                        "march_through_glass": marched})
+                    print(f"{name} round {i}: {live[i]} live rays, "
+                          f"{int(inside.sum())} start inside a glass box, "
+                          f"{int(exits.sum())} of them take the exit face; "
+                          f"K1 {'== plain; ' if i else ''}march steps 0-1 "
+                          f"K1 == plain, {marched} rays walk on through "
+                          "glass")
+                if not mixed:
+                    (img_pl, _), _ = _counted(
+                        f"{name} per light", lambda: eng.render_frame_with_stats(
+                            scene, cams[s], c.replace(fused_shadows=False)),
+                        ("bvh_cast", "bvh_occlude"))
+                    if not torch.equal(img_pl, img):
+                        raise AssertionError(f"{name}: fused_shadows=False "
+                                             "frame differs from the fused")
+                    r["per_light_equal"] = True
+            r["frame_ms_cuda"] = _ms(lambda: eng.render_frame(scene, cams[s],
+                                                              c))
+            prof = _profile(lambda: eng.render_frame(scene, cams[s], c), smi,
+                            label=f"{name} frame {key}")
+            r.update({k: prof[k] for k in ("device_busy_ms", "idle_share",
+                                           "kernels_per_step")})
+            print(f"{name} {key} [{smi}]: frame {r['frame_ms_cuda']:.3f} ms "
+                  f"(median of {REPS}), live rays per round {live} of "
+                  f"{r['queue']}, dropped 0, launches {counts}"
+                  + (f", cuda == torch engine (max abs diff "
+                     f"{r['max_abs_diff']:.3g}; torch frame "
+                     f"{r['frame_ms_torch_once']:.1f} ms once), "
+                     f"{r['bounce_pixels']} pixels changed by the bounces"
+                     if s == main else ""))
+
+        # ---- phase 21: the 1080p step ---------------------------------------
+        target0 = torch.zeros(big[1], big[0], 4, device=dev)
+        cb = cfg.replace(width=big[0], height=big[1])
+
+        def step(engine):
+            params = trainable_params(scene, cams[big])
+            loss = make_loss_fn(scene, cams[big], cb.replace(engine=engine),
+                                target0)(params)
+            return loss.detach(), grad_of(loss, params)
+
+        (loss_c, g_c), counts = _counted(f"{name} step", lambda: step("cuda"),
+                                         used_of[name])
+        loss_t, g_t = step("torch")
+        err = 0.0
+        for (key, a), b in zip(tree.leaves_with_paths(g_c), tree.leaves(g_t)):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name} step grad {key} not finite")
+            torch.testing.assert_close(
+                a, b, rtol=RTOL_GRAD, atol=ATOL_GRAD,
+                msg=lambda m, key=key: f"{name} grad {key}: {m}")
+            err = max(err, float((a - b).abs().max()))
+        mats = g_c["materials"]
+        kr = float(mats.kr.abs().max())
+        kt = float(mats.kt.abs().max())
+        if kr == 0.0 or (mixed and kt == 0.0):
+            raise AssertionError(f"{name} step: kr/kt grads zero")
+        ms = _ms(lambda: step("cuda"), reps=5)
+        out["steps"][name] = {"launches": counts, "grad_max_abs_err": err,
+                              "loss": float(loss_c), "step_ms": ms,
+                              "mrays_per_s": big[0] * big[1] / ms / 1e3,
+                              "max_abs_grad_kr": kr, "max_abs_grad_kt": kt}
+        print(f"{name} step {big[0]}x{big[1]} [{smi}]: loss "
+              f"{float(loss_c):.6f} (torch {float(loss_t):.6f}), grads cuda "
+              f"== torch engine (max abs {err:.3g}; max |g| kr {kr:.3g}, kt "
+              f"{kt:.3g}), launches {counts}; {ms:.3f} ms (median of 5), "
+              f"{out['steps'][name]['mrays_per_s']:.2f} Mrays/s")
+
+    # ---- phase 22: the synthetic worlds at their own 128x96 -----------------
+    def synth_world(scene_np, cam_np, cfg):
+        return (rtt.to_device(scene_np, dev), rtt.to_device(cam_np, dev),
+                cfg.replace(engine="cuda"))
+
+    def both(label, scene, cam, cfg, used):
+        size = (cfg.width, cfg.height)
+        (img, stats), counts = _counted(label, lambda: eng.render_frame_with_stats(
+            scene, cam, cfg), used)
+        ref = eng.render_frame(scene, cam, cfg.replace(engine="torch"))
+        diff = _frame_checks(label, img, ref, size)
+        print(f"{label}: cuda == torch engine (max abs diff {diff:.3g}), "
+              f"dropped {int(stats['dropped'])}, launches {counts}")
+        out["synth"][label] = {"max_abs_diff": diff, "launches": counts,
+                               "dropped": int(stats["dropped"])}
+        return img
+
+    scene, cam, cfg = synth_world(*synth.make_mixed_world(depth=3))
+    dense = both("mixed world, cull", scene, cam, cfg, ("cull_cast",))
+    geom = expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, cfg)
+    waves, _ = rounds(scene, cam, cfg)
+    tile = cull.tile_rows_of(cfg) * cull.LANES
+    for i, w in enumerate(waves[1:], 1):
+        o, d = cast_rays(w)
+        lay = cull.CullLayout.of(o.shape[0], cfg.pallas_ray_chunk, tile)
+        o_p, d_p = lay.pad_rays(o, d, 1.0e30)
+        cand, info = cull.tile_candidates(o_p, d_p, tile,
+                                          data.tables.inst_f32,
+                                          cull.MAX_CAND)
+        _compare_hits(f"mixed world round {i}", cull.cull_cast(
+            o_p, d_p, cand, info, tile, data.tables), cull.cull_cast_reference(
+                o_p, d_p, cand, info, tile, data.tables))
+    print(f"mixed world: K4 == plain on rounds 1-{len(waves) - 1} "
+          f"({[int(w.active.sum()) for w in waves]} live rays per round)")
+    _, st = eng.render_frame_with_stats(scene, cam,
+                                        cfg.replace(queue_factor=0.02))
+    n_drop = int(st["dropped"])
+    if n_drop <= 0:
+        raise AssertionError("queue_factor=0.02 dropped nothing")
+    caps = eng.auto_tile_caps(scene, cam, cfg)
+    run = {k: v for k, v in caps.items() if k != "static_tile_cap"}
+    img, st = eng.render_frame_with_stats(scene, cam, cfg.replace(**run))
+    d_caps = float((img - dense).abs().max())
+    if int(st["dropped"]) != 0 or d_caps > ATOL_FRAME:
+        raise AssertionError(f"auto_tile_caps {caps}: dropped "
+                             f"{int(st['dropped'])}, frame diff {d_caps}")
+    print(f"mixed world: queue_factor=0.02 drops {n_drop} children; "
+          f"auto_tile_caps {caps} -> the dense frame (max abs diff "
+          f"{d_caps:.3g}, dropped 0)")
+    out["synth"].update({"queue_0.02_dropped": n_drop, "auto_tile_caps": caps,
+                         "auto_caps_max_abs_diff": d_caps})
+    scene, cam, cfg = synth_world(*synth.make_sphere_world())
+    both("sphere world, cull", scene, cam, cfg,
+         ("cull_cast", "cull_occlude"))
+    both("sphere world, MXU", scene, cam, cfg.replace(pallas_kernel="mxu"),
+         ("mxu_cast",))
+    scene, cam, cfg = synth_world(*synth.make_big_world(4096))
+    walk = both("big world 4096, walk", scene, cam, cfg,
+                ("bvh_cast", "bvh_occlude"))
+    (forced, _), counts = _counted(
+        "big world 4096, cull", lambda: eng.render_frame_with_stats(
+            scene, cam, cfg.replace(pallas_traversal="cull")),
+        ("cull_cast", "cull_occlude"))
+    d_big = float((forced - walk).abs().max())
+    if d_big > ATOL_FRAME:
+        raise AssertionError(f"big world: cull vs walk frame {d_big}")
+    print(f"big world 4096: the forced cull's frame == the walk's (max abs "
+          f"diff {d_big:.3g}), launches {counts}")
+    out["synth"]["big_cull_vs_walk"] = d_big
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1284,7 +1638,8 @@ def main(argv=None) -> int:
         key = f"{s[0]}x{s[1]}"
         ms_cuda = _ms(lambda: render_frame(scene, cams[s], cfgs[s]))
         ms_torch = _ms(lambda: render_frame(
-            scene, cams[s], cfgs[s].replace(engine="torch")))
+            scene, cams[s], cfgs[s].replace(engine="torch")), reps=1,
+            warmup=False)
         rays_n = s[0] * s[1]
         timing[key] = {"frame_ms_cuda": ms_cuda, "frame_ms_torch": ms_torch,
                        "primary_mrays_per_s_cuda": rays_n / ms_cuda / 1e3}
@@ -1294,10 +1649,12 @@ def main(argv=None) -> int:
         timing[key].update({
             "k1_ms": _ms(lambda: ce.bvh_cast(ro_s, rd_s, data)),
             "k1_plain_ms": _ms(lambda: ce.bvh_cast_reference(ro_s, rd_s,
-                                                             data)),
+                                                             data),
+                               reps=PLAIN_REPS),
             "k2_ms": _ms(lambda: ce.bvh_occlude2(*occ, data)),
             "k2_plain_ms": _ms(lambda: ce.bvh_occlude2_reference(*occ,
-                                                                 data)),
+                                                                 data),
+                               reps=PLAIN_REPS),
             "k1_device_ms": _device_ms(lambda: ce.bvh_cast(ro_s, rd_s,
                                                            data)),
             "k2_device_ms": _device_ms(lambda: ce.bvh_occlude2(*occ, data)),
@@ -1306,9 +1663,10 @@ def main(argv=None) -> int:
         })
         t = timing[key]
         print(f"time {key} [{smi}]: frame cuda {t['frame_ms_cuda']:.3f} ms "
-              f"/ torch {t['frame_ms_torch']:.3f} ms; K1 {t['k1_ms']:.4f} ms "
-              f"/ plain {t['k1_plain_ms']:.3f} ms; K2 {t['k2_ms']:.4f} ms "
-              f"/ plain {t['k2_plain_ms']:.3f} ms (median of {REPS}); device "
+              f"/ torch {t['frame_ms_torch']:.3f} ms (once); K1 "
+              f"{t['k1_ms']:.4f} ms / plain {t['k1_plain_ms']:.3f} ms; K2 "
+              f"{t['k2_ms']:.4f} ms / plain {t['k2_plain_ms']:.3f} ms (median "
+              f"of {REPS} / {PLAIN_REPS}); device "
               f"time alone K1 {t['k1_device_ms']:.4f}, K2 "
               f"{t['k2_device_ms']:.4f}, K3 {t['k3_device_ms']:.4f} ms")
     # ---- phase 6: K3 against its plain version and K2 -----------------------
@@ -1514,6 +1872,12 @@ def main(argv=None) -> int:
         timing[k].update(gg["timing"][k])
         bounds_at[k].update(gg["bounds"][k])
     report["geomgrad"] = gg
+
+    # ---- phases 19-22: the bounce rounds ------------------------------------
+    t_b = time.perf_counter()
+    report["bounces"] = _bounces(dev, smi)
+    report["bounces"]["seconds"] = time.perf_counter() - t_b
+    print(f"bounce phases: {report['bounces']['seconds']:.1f} s")
     report["bounds"] = bounds_at
     report["timing"] = timing
     report["launches"] = launches

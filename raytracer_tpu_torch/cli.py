@@ -110,6 +110,8 @@ def _train(args, scene, camera, cfg) -> int:
     from .pngio import read_png
     from .render import render_frame
 
+    # every bounce round and march step, as the JAX loop's fori_loops take
+    cfg = cfg.replace(early_exit=False)
     dev = scene.verts.device
     if args.target_png:
         rgb = read_png(args.target_png).astype(np.float32) / 255.0

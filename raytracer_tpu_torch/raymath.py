@@ -1,7 +1,7 @@
 """Batched ray-tracing math on torch tensors.
 
-Counterpart of ``raytracer_tpu/raymath.py``, reduced to what the forward
-cube-world slice uses.  Conventions are the JAX package's: ``THRESHOLD =
+Counterpart of ``raytracer_tpu/raymath.py``, reduced to what the port's
+render path uses.  Conventions are the JAX package's: ``THRESHOLD =
 1e-5`` is the universal epsilon, ``normalize`` returns the zero vector below
 it, quaternions are ``[x, y, z, w]``.
 
@@ -29,6 +29,12 @@ def norm(v):
         s = s + v[..., k] * v[..., k]
     pos = s > 0
     return torch.where(pos, torch.sqrt(torch.where(pos, s, 1.0)), 0.0)
+
+
+def safe_sqrt(x):
+    """sqrt clamped at 0, with a zero gradient there (not +inf)."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def safe_pow(base, exponent):
@@ -62,6 +68,27 @@ def reflect(d, n):
     nn = normalize(n)
     r = dn - 2.0 * dot(dn, nn, keepdims=True) * nn
     return d_len * normalize(r)
+
+
+def refract(d, n, n1, n2):
+    """Snell refraction (reference linear.h:225-242).  Returns ``(dir,
+    tir)``: ``tir`` flags total internal reflection, where ``dir`` is the
+    reflection of the normalized ray instead; ``dir`` is scaled by |d|.
+    ``n1``/``n2`` are per-ray tensors ``[...]`` or scalars.  Under TIR the
+    refracted branch's root is ``safe_sqrt``'s 0, so its gradient stays
+    finite."""
+    d_len = norm(d)[..., None]
+    dn = normalize(d)
+    nn = normalize(n)
+    ratio = torch.as_tensor(n1 / n2, dtype=dn.dtype, device=dn.device)
+    ratio = ratio.expand(dn.shape[:-1])[..., None]
+    cosi = dot(dn, nn, keepdims=True)
+    sint2 = ratio * ratio * (1.0 - cosi * cosi)
+    tir = (sint2 > 1.0)[..., 0]
+    refracted = ratio * dn + (ratio * cosi - safe_sqrt(1.0 - sint2)) * nn
+    reflected = dn - 2.0 * cosi * nn
+    out = torch.where(tir[..., None], normalize(reflected), refracted)
+    return d_len * out, tir
 
 
 def quat_mul(a, b):

@@ -1,18 +1,40 @@
-"""Frame assembly: camera rays in 32x32 blocks, one shading round, clamp.
+"""Frame assembly: camera rays in 32x32 blocks, the bounce wavefront, clamp.
 
-Counterpart of ``raytracer_tpu/render/engine.py`` for opaque worlds:
-``render_frame`` -> ``_frame_rays_blocked`` (pad to a multiple of 32, pad
-pixels keep origin 0 and dir (0,0,1), reorder into 32x32 screen blocks so
-neighbouring rays share a frustum) -> ``render_rays_stats`` -> round 0 of
-``_radiance_dense`` -> unblock and crop.  Worlds with a reflective or
-refractive material spawn bounce rounds, which are not ported.  Frames are
+Counterpart of ``raytracer_tpu/render/engine.py``: ``render_frame`` ->
+``_frame_rays_blocked`` (pad to a multiple of 32, pad pixels keep origin 0
+and dir (0,0,1), reorder into 32x32 screen blocks so neighbouring rays
+share a frustum) -> ``render_rays_stats`` -> ``radiance`` -> unblock and
+crop.
+
+``radiance`` replaces the reference's per-pixel recursion
+(``propagate_ray``, ``src/rayenv/scene.cu:75-187``) with a wavefront: a
+queue of ray states (:class:`Wave`) advanced one bounce round at a time by
+:func:`process_round` (cast, shade, spawn the reflect and refract
+children).  Two queue disciplines, chosen from the scene's materials:
+
+* the pixel-aligned stream (materials spawn one child type): each child
+  keeps its parent's slot, so a round adds its contributions with a plain
+  add; dead slots keep their place, their origins parked at 1e30;
+* the compacted 2x stream (reflective AND refractive materials): the two
+  child streams concatenate, a stable argsort moves the active children to
+  the front, ``C = int(R * queue_factor)`` slots are kept (the rest are
+  counted in ``dropped``), and contributions go back to their pixels by an
+  ``index_add_``.
+
+``wavefront_tile_cap`` runs the rounds on the 1024-ray tiles that hold a
+primary hit; ``child_tile_cap`` keeps whole tiles of children instead of
+single slots.  Each surface's own material gates its reflect and refract
+children (DEVIATIONS.md: one flag per child type).  Frames are
 differentiable: the casts carry their own VJP rules (``cast_vjp.py``);
 ``edge_aware_grads`` adds the silhouette band's boundary term to the
-backward (the reparam cast rule and the visibility hinge) and leaves the
-forward frame bit for bit as it is.
+backward and leaves the forward frame bit for bit as it is.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
@@ -24,33 +46,35 @@ from .cuda_engine import _use_walk, make_cuda_cast, prepare_cast
 from .cull import make_cull_cast
 from .geometry import WorldGeometry, camera_rays, expand_geometry
 from .mxu import make_mxu_cast, prepare_mxu_cast
-from .shading import check_lights, gather_material_rows, illuminate
+from .shading import gather_material_rows, illuminate
 
 BLOCK = 32  # screen-space tile edge: one 32x32 block of rays
+# Rays per engine tile (BLOCK * BLOCK): the granularity of the tile caps
+TILE_LANES = 1024
 
 
 def check_config(scene: Scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any setting
     the port does not cover yet (never a silent switch of path)."""
-    if cfg.any_reflective or cfg.any_refractive:
-        raise NotImplementedError(
-            "worlds with reflective or refractive materials spawn bounce "
-            "rounds, which are not ported (ROADMAP.md Queue 1 items 4-5: "
-            "bounce streams, refraction); the loader sets any_reflective/"
-            "any_refractive from the materials")
     if cfg.spp > 1:
         raise NotImplementedError(
             "spp > 1 is not ported (ROADMAP.md Queue 1 item 6: spp)")
-    if (cfg.wavefront_tile_cap > 0.0 or cfg.child_tile_cap > 0.0
-            or cfg.static_tile_cap > 0.0):
+    if cfg.static_tile_cap > 0.0:
         raise NotImplementedError(
-            "tile caps are not ported (ROADMAP.md Queue 1 item 4: bounce "
-            "streams and tile-compacted queues)")
+            "static_tile_cap (the spp sweep's kept tiles) is not ported "
+            "(ROADMAP.md Queue 1 item 6: spp)")
     if cfg.texture_mapping:
         raise NotImplementedError(
             "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
             "ops surface and atlas sampling)")
-    check_lights(scene, cfg)
+
+
+def trans_attenuation(kt, time):
+    """``time^Kt`` per channel (reference ``src/rayenv/scene.cu:14-22``):
+    the base is the segment's *time*, not Kt, as the reference has it.
+    Gradient-safe at 0."""
+    return rm.safe_pow(torch.maximum(time, time.new_zeros(()))[..., None],
+                       kt)
 
 
 @torch.no_grad()
@@ -103,40 +127,266 @@ def edge_aware_visibility(cfg: RenderConfig, band_tbl, hit: Hit, normal,
     return torch.where(h_valid, 1.0 + (soft - soft.detach()), 0.0)
 
 
-def _radiance_dense(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
-                    cfg: RenderConfig, ray_o, ray_d, pixel_angle=None):
-    """Round 0 of the wavefront (primary rays); with no material able to
-    spawn children this is the whole of ``_radiance_dense``.  Returns
-    ``(acc [R,4], dropped)``.  ``pixel_angle``: the angular size of a
-    pixel, which sizes the edge-aware band in screen pixels."""
-    check_config(scene, cfg)
+@dataclass
+class Wave:
+    """One round's ray queue (the SoA analog of the reference's
+    ``RayFrame``): origins and directions ``[C, 3]``, the attenuation
+    carried from the primary ray ``[C, 4]``, whether the ray travels inside
+    a medium, whether the slot is live, and the pixel (the block-major ray
+    index of the primary) it adds to."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    atten: torch.Tensor
+    in_obj: torch.Tensor
+    active: torch.Tensor
+    pixel: torch.Tensor
+
+    def map(self, fn) -> "Wave":
+        return Wave(**{f.name: fn(getattr(self, f.name))
+                       for f in dataclasses.fields(self)})
+
+    def with_parked_dirs(self) -> "Wave":
+        """Dead slots take the direction (0, 0, 1)."""
+        d = torch.where(self.active[:, None], self.d,
+                        self.d.new_tensor([0.0, 0.0, 1.0]))
+        return dataclasses.replace(self, d=d)
+
+
+def primary_wave(ray_o, ray_d) -> Wave:
     R = ray_o.shape[0]
-    active = torch.ones(R, dtype=torch.bool, device=ray_o.device)
-    hit = cast_fn(ray_o, ray_d)
+    dev = ray_o.device
+    return Wave(o=ray_o, d=ray_d,
+                atten=torch.ones(R, 4, dtype=torch.float32, device=dev),
+                in_obj=torch.zeros(R, dtype=torch.bool, device=dev),
+                active=torch.ones(R, dtype=torch.bool, device=dev),
+                pixel=torch.arange(R, device=dev))
+
+
+def process_round(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+                  cfg: RenderConfig, st: Wave, spawn: bool, band_tbl=None,
+                  pixel_angle=None):
+    """Cast and shade one wavefront round (``_radiance_dense``'s
+    ``process_round``).  Returns ``(contrib [C, 4], children)``: the
+    radiance each slot adds to its pixel, and the reflect and refract
+    children as one :class:`Wave` (``2C`` slots when both child types
+    exist), or None when ``spawn`` is False (the last round, whose
+    children would all be dead)."""
+    # dead slots park far outside the scene, so their walks end at once
+    o_cast = torch.where(st.active[:, None], st.o, 1e30)
+    hit = cast_fn(o_cast, st.d)
     # sanitize miss times (inf) so positions of masked lanes stay finite
     hit = Hit(valid=hit.valid, t=torch.where(hit.valid, hit.t, 1.0),
               wtri=hit.wtri, uv=hit.uv, normal=hit.normal, mat=hit.mat)
-    h_valid = active & hit.valid
+    h_valid = st.active & hit.valid
     normal, mat_idx, _ = hit_shading_attrs(geom, hit)
     rmats = gather_material_rows(scene.materials, mat_idx)
-    lum = illuminate(scene, cast_fn, cfg, ray_o, ray_d, hit, normal, rmats,
-                     h_valid)
-    # the primary round's attenuation and visibility are exactly 1 on hits
+
+    # inside a medium every hit attenuates by the hit material's Kt over
+    # the segment (scene.cu:112-115); t masked to 1 outside, so that no
+    # miss reaches the pow's gradient.  No refractive material: no ray is
+    # ever inside one.
+    atten_eff = st.atten
+    if cfg.any_refractive:
+        in_medium = st.in_obj & h_valid
+        t_m = torch.where(in_medium, hit.t, 1.0)
+        atten_eff = torch.where(in_medium[:, None],
+                                st.atten * trans_attenuation(rmats.kt, t_m),
+                                st.atten)
+
+    lum = illuminate(scene, geom, cast_fn, cfg, st.o, st.d, hit, normal,
+                     rmats, h_valid)
+    # visibility is exactly 1 on hits without the edge-aware band
+    weight = atten_eff
     if cfg.edge_aware_grads:
-        vis = edge_aware_visibility(cfg, band_table(geom), hit, normal,
-                                    ray_d, h_valid, pixel_angle)
-        lum = vis[:, None] * lum
-    contrib = torch.where(h_valid[:, None], lum, 0.0)
-    return contrib, torch.zeros((), dtype=torch.int32, device=ray_o.device)
+        vis = edge_aware_visibility(cfg, band_tbl, hit, normal, st.d,
+                                    h_valid, pixel_angle)
+        weight = vis[:, None] * atten_eff
+    contrib = torch.where(h_valid[:, None], weight * lum, 0.0)
+    if not spawn:
+        return contrib, None
+
+    hit_pt = st.o + hit.t[:, None] * st.d
+    parts = []
+    if cfg.any_reflective:
+        reflective = (rmats.kr > 0.0).any(-1)
+        parts.append(Wave(
+            o=hit_pt, d=rm.normalize(rm.reflect(st.d, normal)),
+            atten=atten_eff * rmats.kr, in_obj=st.in_obj,
+            active=h_valid & reflective, pixel=st.pixel))
+    if cfg.any_refractive:
+        refractive = (rmats.kt > 0.0).any(-1)
+        eta = rmats.eta
+        n1 = torch.where(st.in_obj, eta, 1.0)
+        n2 = torch.where(st.in_obj, 1.0, eta)
+        refr_d, tir = rm.refract(st.d, normal, n1, n2)
+        parts.append(Wave(
+            o=hit_pt, d=rm.normalize(refr_d), atten=atten_eff,
+            in_obj=~st.in_obj, active=h_valid & refractive & ~tir,
+            pixel=st.pixel))
+    if len(parts) == 1:
+        return contrib, parts[0]
+    return contrib, Wave(**{
+        f.name: torch.cat([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(Wave)})
+
+
+def compact(children: Wave, cap: int):
+    """The active children first, in their order (a stable argsort of the
+    dead flag, as uint8 so every device sorts alike), the first ``cap``
+    slots kept.  Returns ``(wave, n_dropped)``."""
+    order = torch.argsort((~children.active).to(torch.uint8), stable=True)
+    keep = order[:cap]
+    st = children.map(lambda x: x[keep]).with_parked_dirs()
+    dropped = children.active.sum() - st.active.sum()
+    return st, dropped.to(torch.int32)
+
+
+def compact_tiles(children: Wave, n_tiles: int):
+    """The first ``n_tiles`` whole 1024-slot tiles that hold an active
+    child, in tile order.  Returns ``(wave, n_dropped)``."""
+    tile_any = children.active.reshape(-1, TILE_LANES).any(-1)
+    keep_t = torch.sort(torch.argsort((~tile_any).to(torch.uint8),
+                                      stable=True)[:n_tiles]).values
+
+    def take(x):
+        xt = x.reshape((-1, TILE_LANES) + x.shape[1:])
+        return xt[keep_t].reshape((-1,) + x.shape[1:])
+
+    st = children.map(take).with_parked_dirs()
+    dropped = children.active.sum() - st.active.sum()
+    return st, dropped.to(torch.int32)
+
+
+def tile_scatter_add(acc, pixel, contrib):
+    """Add kept tiles' contributions by whole tiles: each kept tile's 1024
+    pixels are one tile of the frame, in order (children keep their
+    parents' slots), and a mixed stream can keep the same tile twice,
+    whose contributions ``index_add`` sums."""
+    tid = pixel.reshape(-1, TILE_LANES)[:, 0] // TILE_LANES
+    return acc.reshape(-1, TILE_LANES, 4).index_add(
+        0, tid, contrib.reshape(-1, TILE_LANES, 4)).reshape(acc.shape)
+
+
+RoundHook = Callable[[int, Wave], None]
+
+
+def _radiance_dense(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+                    cfg: RenderConfig, ray_o, ray_d, pixel_angle=None,
+                    on_round: Optional[RoundHook] = None):
+    """Every round of the wavefront over the flat primary rays ``[R, 3]``.
+    Returns ``(acc [R, 4], dropped)``; ``dropped`` counts the children that
+    found no slot in the queue.  ``pixel_angle``: the angular size of a
+    pixel, which sizes the edge-aware band in screen pixels.  ``on_round``
+    (if given) sees each round's queue before its cast."""
+    R = ray_o.shape[0]
+    band_tbl = band_table(geom) if cfg.edge_aware_grads else None
+    can_spawn = ((cfg.any_reflective or cfg.any_refractive)
+                 and cfg.recurse_depth > 0)
+
+    def run(r, st, spawn):
+        if on_round is not None:
+            on_round(r, st)
+        return process_round(scene, geom, cast_fn, cfg, st, spawn, band_tbl,
+                             pixel_angle)
+
+    acc, children = run(0, primary_wave(ray_o, ray_d), can_spawn)
+    dropped = torch.zeros((), dtype=torch.int32, device=ray_o.device)
+    if not can_spawn:
+        return acc, dropped
+
+    # the child queue: whole tiles (child_tile_cap), aligned slots (one
+    # child type), or single slots (both types, C = R * queue_factor)
+    tiles = cfg.child_tile_cap > 0.0 and R % TILE_LANES == 0
+    aligned = (cfg.any_reflective != cfg.any_refractive) and not tiles
+    if tiles:
+        t0 = R // TILE_LANES
+        n_parts = int(bool(cfg.any_reflective)) + int(bool(cfg.any_refractive))
+        n_tiles = min(max(1, int(-(-t0 * cfg.child_tile_cap // 1))),
+                      n_parts * t0)
+    C = int(R * cfg.queue_factor)
+
+    def advance(children):
+        if aligned:
+            return children.with_parked_dirs(), None
+        if tiles:
+            return compact_tiles(children, n_tiles)
+        return compact(children, C)
+
+    st, dn = advance(children)
+    if dn is not None:
+        dropped = dropped + dn
+    for r in range(1, cfg.recurse_depth + 1):
+        # early_exit: one host read a round, the JAX package's while_loop
+        if cfg.early_exit and not bool(st.active.any()):
+            break
+        spawn = r < cfg.recurse_depth  # the last round spawns none
+        contrib, children = run(r, st, spawn)
+        if aligned:
+            acc = acc + contrib
+        elif tiles:
+            acc = tile_scatter_add(acc, st.pixel, contrib)
+        else:
+            acc = acc.index_add(0, st.pixel, contrib)
+        if spawn:
+            st, dn = advance(children)
+            if dn is not None:
+                dropped = dropped + dn
+    return acc, dropped
+
+
+def _radiance_tile_compacted(scene, geom, cast_fn, cfg, ray_o, ray_d,
+                             n_tiles, pixel_angle, on_round=None):
+    """The wavefront on the first ``n_tiles`` 1024-ray tiles that hold a
+    primary hit (found by a detached pre-cast); hits in the other tiles are
+    counted in ``dropped``, and their pixels stay 0."""
+    R = ray_o.shape[0]
+    T = R // TILE_LANES
+    with torch.no_grad():
+        pre = cast_fn(ray_o.detach(), ray_d.detach())
+    tile_hits = pre.valid.reshape(T, TILE_LANES).sum(-1)
+    keep_t = torch.sort(torch.argsort((tile_hits == 0).to(torch.uint8),
+                                      stable=True)[:n_tiles]).values
+    dropped_hits = tile_hits.sum() - tile_hits[keep_t].sum()
+
+    def take(x):
+        return x.reshape(T, TILE_LANES, 3)[keep_t].reshape(-1, 3)
+
+    acc_c, dropped = _radiance_dense(scene, geom, cast_fn, cfg, take(ray_o),
+                                     take(ray_d), pixel_angle, on_round)
+    acc = acc_c.new_zeros(T, TILE_LANES, 4).index_copy(
+        0, keep_t, acc_c.reshape(-1, TILE_LANES, 4)).reshape(R, 4)
+    return acc, dropped + dropped_hits.to(torch.int32)
+
+
+def radiance(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+             cfg: RenderConfig, ray_o, ray_d, pixel_angle=None,
+             on_round: Optional[RoundHook] = None):
+    """Accumulated RGBA radiance ``[R, 4]`` of flat primary rays ``[R, 3]``
+    and the count of dropped children (and, under ``wavefront_tile_cap``,
+    of primary hits in tiles beyond the cap).  ``wavefront_tile_cap`` > 0
+    runs the rounds on ``ceil(T * cap)`` tiles when that is fewer than all
+    ``T``."""
+    cap = cfg.wavefront_tile_cap
+    if cap > 0.0 and ray_o.shape[0] % TILE_LANES == 0:
+        T = ray_o.shape[0] // TILE_LANES
+        n_tiles = max(1, int(-(-T * cap // 1)))  # ceil(T * cap)
+        if n_tiles < T:
+            return _radiance_tile_compacted(scene, geom, cast_fn, cfg, ray_o,
+                                            ray_d, n_tiles, pixel_angle,
+                                            on_round)
+    return _radiance_dense(scene, geom, cast_fn, cfg, ray_o, ray_d,
+                           pixel_angle, on_round)
 
 
 def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
                       cfg: RenderConfig, ray_o, ray_d, pixel_angle=None):
-    """Radiance of a flat ray batch, clamped to <= 1 like the canvas write.
-    Returns ``(img, dropped)``; nothing is dropped without tile caps."""
-    acc, dropped = _radiance_dense(scene, geom, cast_fn, cfg,
-                                   ray_o.reshape(-1, 3), ray_d.reshape(-1, 3),
-                                   pixel_angle)
+    """Radiance of a ray batch, clamped to <= 1 like the canvas write.
+    Returns ``(img, dropped)``: a nonzero ``dropped`` means a queue or tile
+    cap deleted radiance."""
+    check_config(scene, cfg)
+    acc, dropped = radiance(scene, geom, cast_fn, cfg, ray_o.reshape(-1, 3),
+                            ray_d.reshape(-1, 3), pixel_angle)
     return clamp_frame(acc).reshape(ray_o.shape[:-1] + (4,)), dropped
 
 
@@ -181,9 +431,10 @@ def _from_blocks(x, hp, wp):
     return x.transpose(1, 2).reshape(hp, wp, *lead)
 
 
-def _frame_rays_blocked(camera: Camera, cfg: RenderConfig):
-    """Full-frame camera rays in block-major [R, 3] layout (padded)."""
-    ray_o, ray_d = camera_rays(camera, cfg.width, cfg.height)
+def _frame_rays_blocked(camera: Camera, cfg: RenderConfig, jitter=None):
+    """Full-frame camera rays in block-major [R, 3] layout (padded);
+    ``jitter`` as ``camera_rays``'."""
+    ray_o, ray_d = camera_rays(camera, cfg.width, cfg.height, jitter=jitter)
     hp = (cfg.height + BLOCK - 1) // BLOCK * BLOCK
     wp = (cfg.width + BLOCK - 1) // BLOCK * BLOCK
     pad = (0, 0, 0, wp - cfg.width, 0, hp - cfg.height)
@@ -200,7 +451,9 @@ def _frame_rays_blocked(camera: Camera, cfg: RenderConfig):
 
 
 def render_frame_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig):
-    """Like ``render_frame``, also returning ``{"dropped": i32}``."""
+    """Like ``render_frame``, also returning ``{"dropped": i32}``: the
+    children and primary hits that a queue or tile cap deleted (0 unless a
+    cap is too small; raise it, or take ``auto_tile_caps``)."""
     geom = expand_geometry(scene)
     cast_fn = make_cast(scene, geom, cfg)
     ro_b, rd_b, hp, wp = _frame_rays_blocked(camera, cfg)
@@ -220,6 +473,78 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
     scene's device."""
     img, _ = render_frame_with_stats(scene, camera, cfg)
     return img
+
+
+@torch.no_grad()
+def _probe_tile_occupancy(cast_fn: CastFn, camera: Camera, cfg: RenderConfig,
+                          scene: Optional[Scene] = None,
+                          geom: Optional[WorldGeometry] = None):
+    """Per-tile occupancy of the pixel-centre frame: ``(occ [T], dil [T],
+    hits [T], spawn [T] or None)``, the tiles with a hit, their 3x3
+    screen-space dilation, the hits per tile and, given ``scene``, the
+    tiles with a hit on a reflective or refractive material (the only hits
+    that feed the child queues)."""
+    ro_b, rd_b, hp, wp = _frame_rays_blocked(
+        camera, cfg, torch.full((cfg.height, cfg.width, 2), 0.5,
+                                device=camera.pos.device))
+    pre = cast_fn(ro_b, rd_b)
+    th, tw = hp // BLOCK, wp // BLOCK
+    valid = pre.valid.reshape(th * tw, TILE_LANES)
+    occ = valid.any(-1)
+    hits = valid.sum(-1)
+    p = torch.nn.functional.pad(occ.reshape(th, tw), (1, 1, 1, 1))
+    dil = torch.zeros_like(occ.reshape(th, tw))
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            dil = dil | p[1 + dy: 1 + dy + th, 1 + dx: 1 + dx + tw]
+    spawn = None
+    if scene is not None:
+        mat = pre.mat
+        if mat is None and geom is not None:
+            mat = geom.mat[pre.wtri.long()]
+        if mat is not None:
+            mats = scene.materials
+            spawnable = (mats.kr > 0.0).any(-1) | (mats.kt > 0.0).any(-1)
+            lane = pre.valid & spawnable[mat.long()]
+            spawn = lane.reshape(th * tw, TILE_LANES).any(-1)
+    return occ, dil.reshape(-1), hits, spawn
+
+
+@torch.no_grad()
+def auto_tile_caps(scene: Scene, camera: Camera, cfg: RenderConfig,
+                   margin: float = 2.0) -> dict:
+    """Tile caps from one probe of the pixel-centre frame, as a dict of
+    config overrides (the JAX package's ``auto_tile_caps``; a host-level
+    helper to call once at setup):
+
+    * ``wavefront_tile_cap``: the share of tiles with a hit times
+      ``margin``, 0 (off) at 40% or more;
+    * ``child_tile_cap``: the share of tiles with a reflective or
+      refractive hit times ``margin``, 0 when the wavefront cap is on (its
+      queue already holds only kept tiles) or at 85% or more;
+    * ``static_tile_cap``: the dilated share times 1.1, for the spp sweep
+      (not ported: ROADMAP.md Queue 1 item 6).
+
+    A cap is at least one tile.  Drops that remain are counted by
+    ``render_frame_with_stats``."""
+    cfg1 = cfg.replace(spp=1, static_tile_cap=0.0, wavefront_tile_cap=0.0,
+                       child_tile_cap=0.0)
+    geom = expand_geometry(scene)
+    cast_fn = make_cast(scene, geom, cfg1)
+    occ, dil, _, spawn = _probe_tile_occupancy(cast_fn, camera, cfg1,
+                                               scene=scene, geom=geom)
+    n_occ = int(occ.sum())
+    n_dil = int(dil.sum())
+    n_spawn = n_occ if spawn is None else int(spawn.sum())
+    T = occ.shape[0]
+
+    def cap(frac, off_at=0.85):
+        return 0.0 if frac >= off_at else max(frac, 1.0 / T)
+
+    wf = cap(float(n_occ) / T * margin, off_at=0.4)
+    child = 0.0 if wf > 0.0 else cap(float(n_spawn) / T * margin)
+    return {"wavefront_tile_cap": wf, "child_tile_cap": child,
+            "static_tile_cap": cap(float(n_dil) / T * 1.1)}
 
 
 def frame_to_u8(img: torch.Tensor) -> torch.Tensor:

@@ -122,10 +122,12 @@ def expand_geometry(scene: Scene) -> WorldGeometry:
     )
 
 
-def camera_rays(cam: Camera, width: int, height: int):
+def camera_rays(cam: Camera, width: int, height: int, jitter=None):
     """Primary rays through every pixel corner (x right, y down).  Returns
-    ``(origins [H,W,3], dirs [H,W,3])`` with unit dirs.  Sub-pixel jitter
-    (spp > 1) is not ported."""
+    ``(origins [H,W,3], dirs [H,W,3])`` with unit dirs.  ``jitter`` (an
+    optional ``[H,W,2]`` in [0, 1)) moves each ray inside its pixel, in the
+    JAX package's operation order (``auto_tile_caps`` probes the pixel
+    centres with it; the spp sample pattern is not ported)."""
     dev = cam.pos.device
     m = rm.quat_to_mat(cam.rot)
     r = rm.normalize(m[:, 0])
@@ -133,9 +135,13 @@ def camera_rays(cam: Camera, width: int, height: int):
     f = rm.normalize(m[:, 2])
     xs = torch.arange(width, dtype=torch.float32, device=dev)
     ys = torch.arange(height, dtype=torch.float32, device=dev)
-    gx = ((xs - 0.5 * width) / cam.unit_to_pixels).expand(height, width)
-    gy = ((0.5 * height - ys) / cam.unit_to_pixels)[:, None].expand(
-        height, width)
+    if jitter is not None:
+        gx = (xs[None, :] + jitter[..., 0] - 0.5 * width) / cam.unit_to_pixels
+        gy = (0.5 * height - (ys[:, None] + jitter[..., 1])) / cam.unit_to_pixels
+    else:
+        gx = ((xs - 0.5 * width) / cam.unit_to_pixels).expand(height, width)
+        gy = ((0.5 * height - ys) / cam.unit_to_pixels)[:, None].expand(
+            height, width)
     d = cam.global_near * f + gx[..., None] * r + gy[..., None] * u
     d = rm.normalize(d)
     o = cam.pos.expand(d.shape)

@@ -167,10 +167,12 @@ def stage_mxu(ro: torch.Tensor, rd: torch.Tensor, data: MxuData,
             cand_slots, (0, slots - cand_slots.shape[1]))
     cand_inst = torch.clamp(cand_slots, 0, max(n_inst - 1, 0)).long()
     col = torch.arange(k, device=dev)
-    tri_in_slot = col // max_tris
+    # the columns past the last whole slot (k not a multiple of max_tris)
+    # are dead, as the JAX package's out-of-range take_along_axis fills them
+    tri_in_slot = torch.clamp(col // max_tris, max=max(slots - 1, 0))
     tri_off = col % max_tris
     col_start = tab.inst_start[cand_inst][:, tri_in_slot]  # [T, K]
-    col_live = (in_range[:, tri_in_slot]
+    col_live = ((col < slots * max_tris)[None] & in_range[:, tri_in_slot]
                 & (tri_off[None] < tab.inst_count[cand_inst][:, tri_in_slot]))
     row_ids = col_start + tri_off[None]
     ids = torch.where(col_live, row_ids.to(torch.float32), -1.0)

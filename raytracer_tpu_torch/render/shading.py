@@ -1,13 +1,18 @@
-"""Phong shading with shadowed point and directional lights.
+"""Phong shading, shadowed point and directional lights, and the
+transmissive shadow march.
 
-Counterpart of ``raytracer_tpu/render/shading.py`` for opaque worlds:
-``illuminate = Ke + Ka*ambience + sum over lights of phong(...)``, each
-light's shadow decided by one any-hit query.  With exactly 1 point + 1
-directional light, ``fused_shadows`` on and a cast that has ``occlude2``,
-one call answers both queries (K2's fused walk, or two K5 queries on the
-cull); otherwise each light sends its own query (K3 or K5), the opaque fast
-path of ``_march_shadow``, or a closest-hit cast where the cast has no
-``occlude`` (the MXU cast).  The transmissive shadow march is not ported.
+Counterpart of ``raytracer_tpu/render/shading.py``: ``illuminate = Ke +
+Ka*ambience + sum over lights of phong(...)``.  In a world without a
+refractive material each light's shadow is one any-hit query: with exactly
+1 point + 1 directional light, ``fused_shadows`` on and a cast that has
+``occlude2``, one call answers both queries (K2's fused walk, or two K5
+queries on the cull); otherwise each light sends its own query (K3 or K5),
+or a closest-hit cast where the cast has no ``occlude`` (the MXU cast).
+With a refractive material the shadow ray marches (``_march_shadow``,
+reference light.cu:30-61): each step takes the closest hit (K1, K4 or K6);
+an opaque blocker before the light kills it, a transmissive one passes it
+on, attenuated by ``Kt^segment`` where the ray leaves the blocker
+(``n.d > 0``), for at most ``shadow_steps`` steps.
 
 Where the JAX package takes ``jnp.maximum``/``jnp.minimum`` against a
 constant, this module takes ``torch.maximum``/``torch.minimum`` against a
@@ -23,7 +28,8 @@ import torch
 
 from .. import raymath as rm
 from ..scene import Materials, RenderConfig, Scene
-from .cast import CastFn, Hit
+from .cast import CastFn, Hit, hit_shading_attrs
+from .geometry import WorldGeometry
 
 
 def _relu(x):
@@ -32,7 +38,7 @@ def _relu(x):
 
 
 class _MaterialRows(torch.autograd.Function):
-    """``table[idx]`` for a material table ``[K, 26]`` and per-ray indices
+    """``table[idx]`` for a material table ``[K, C]`` and per-ray indices
     ``[R]``, whose backward sums each material's rows of the cotangent in
     two passes that do not grow with K: an ``index_add_`` of each block of
     ``max(64, K)`` consecutive rays into that block's own K partial rows,
@@ -98,15 +104,10 @@ def phong_term(rmats: Materials, incoming, ray_dir, dir_to_light, normal):
     return (diffuse + spec) * incoming
 
 
-def check_lights(scene: Scene, cfg: RenderConfig) -> None:
-    """Any number of point and directional lights shade, fused or per
-    light; only a refractive world, whose shadows march through
-    transmissive blockers, raises."""
-    if cfg.any_refractive:
-        raise NotImplementedError(
-            "shadows through refractive materials need the transmissive "
-            "shadow march, which is not ported (ROADMAP.md Queue 1 item 5: "
-            "refraction)")
+def shadow_attenuation(kt, dist):
+    """``Kt^dist`` per channel (reference light.cu:19-26); gradient-safe at
+    ``kt == 0``."""
+    return rm.safe_pow(kt, dist[..., None])
 
 
 def _use_fused(scene: Scene, cfg: RenderConfig, cast_fn: CastFn) -> bool:
@@ -155,11 +156,69 @@ def march_shadow(cast_fn: CastFn, origin, dir_unit, max_t, light_col,
     return torch.where(blocked[..., None], 0.0, lit)
 
 
-def illuminate(scene: Scene, cast_fn: CastFn, cfg: RenderConfig, ray_o,
-               ray_d, hit: Hit, normal, rmats: Materials, active):
+def march_transmissive(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+                       cfg: RenderConfig, origin, dir_unit, max_t, light_col,
+                       active):
+    """The transmissive shadow march (``_march_shadow``'s loop): the light
+    arriving at ``origin`` [R,3] from ``light_col`` along ``dir_unit``
+    within ``max_t`` ([R] or a float).  Each step casts the closest hit:
+    a hit beyond the light leaves it, an opaque one kills it, and a
+    refractive one lets it on from the hit point, times ``Kt^t`` where the
+    ray leaves the blocker (``n.d > 0``).  ``shadow_steps`` steps, or with
+    ``early_exit`` until no ray walks on (one host read a step).  ``kt``
+    comes from the packed material rows (:func:`gather_material_rows`, the
+    blocked-sum backward): on the card a gather of the ``[K, 4]`` table
+    alone takes torch's path for 16-byte rows, several times slower."""
+    dir_unit = dir_unit.expand(origin.shape)
+    origin = torch.where(active[..., None], origin, 1e30)
+    rv = light_col.expand(origin.shape[:-1] + (4,))
+    cur_o = origin + rm.THRESHOLD * dir_unit  # light.cu:32
+    remaining = torch.as_tensor(max_t, dtype=torch.float32,
+                                device=origin.device).expand(
+                                    origin.shape[:-1])
+    alive = active
+    for _ in range(cfg.shadow_steps):
+        if cfg.early_exit and not bool(alive.any()):
+            break
+        hit = cast_fn(cur_o, dir_unit)
+        h_norm, h_mat, _ = hit_shading_attrs(geom, hit)
+        step_hit = alive & hit.valid
+        t_fin = torch.where(hit.valid, hit.t, 1.0)  # masked lanes finite
+        beyond = step_hit & (t_fin > remaining)
+        kt = gather_material_rows(scene.materials, h_mat).kt
+        refractive = (kt > 0.0).any(-1)
+        opaque = step_hit & ~beyond & ~refractive
+        continuing = step_hit & ~beyond & refractive
+        rv = torch.where(opaque[..., None], 0.0, rv)
+        exiting = continuing & (rm.dot(h_norm, dir_unit) > 0.0)
+        # the path length masked first: no miss reaches the pow's gradient
+        t_m = torch.where(continuing, t_fin, 1.0)
+        rv = torch.where(exiting[..., None],
+                         rv * shadow_attenuation(kt, t_m), rv)
+        cur_o = torch.where(continuing[..., None],
+                            cur_o + t_m[..., None] * dir_unit, cur_o)
+        remaining = torch.where(continuing, remaining - t_m, remaining)
+        alive = continuing
+    return rv
+
+
+def _shadowed(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+              cfg: RenderConfig, origin, dir_unit, max_t, light_col, active):
+    """``_march_shadow``: one any-hit query where no material transmits,
+    else the march."""
+    if not cfg.any_refractive:
+        return march_shadow(cast_fn, origin, dir_unit, max_t, light_col,
+                            active)
+    return march_transmissive(scene, geom, cast_fn, cfg, origin, dir_unit,
+                              max_t, light_col, active)
+
+
+def illuminate(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+               cfg: RenderConfig, ray_o, ray_d, hit: Hit, normal,
+               rmats: Materials, active):
     """Local shading at a hit point (reference phong.cu:40-67): the fused
-    two-light round when it applies, else one shadow query per light."""
-    check_lights(scene, cfg)
+    two-light round when it applies, else one shadow query or march per
+    light."""
     hit_pos = ray_o + hit.t[..., None] * ray_d
     col = rmats.ke + rmats.ka * scene.ambience
     lights = scene.lights
@@ -183,12 +242,14 @@ def illuminate(scene: Scene, cast_fn: CastFn, cfg: RenderConfig, ray_o,
         disp = lights.point_pos[i] - hit_pos
         dist = rm.norm(disp)
         dir_to_light = rm.normalize(disp)
-        incoming = distance_attenuation(scene, dist)[..., None] * march_shadow(
-            cast_fn, hit_pos, dir_to_light, dist, lights.point_col[i], active)
+        incoming = distance_attenuation(scene, dist)[..., None] * _shadowed(
+            scene, geom, cast_fn, cfg, hit_pos, dir_to_light, dist,
+            lights.point_col[i], active)
         col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal)
     for i in range(lights.dir_dir.shape[0]):
         dir_to_light = -lights.dir_dir[i]  # raw (reference light.cu:74-77)
-        incoming = march_shadow(cast_fn, hit_pos, rm.normalize(dir_to_light),
-                                float("inf"), lights.dir_col[i], active)
+        incoming = _shadowed(scene, geom, cast_fn, cfg, hit_pos,
+                             rm.normalize(dir_to_light), float("inf"),
+                             lights.dir_col[i], active)
         col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal)
     return col

@@ -25,7 +25,16 @@ their plain versions in every output (primary, random, degenerate and
 (``cuda_engine.k1_walk_replay``) and hold the O(log N) envelope at 16,384
 instances; K4 and K5 on 9,216 instances (lists staged in pieces) equal
 their plain versions, and the forced cull's frame the walk's; the vertex
-gradients of both engines agree (verts at atol 1e-6 max|g|)."""
+gradients of both engines agree (verts at atol 1e-6 max|g|).
+
+The bounce rounds: terrain8_stress (the aligned stream, K2 every round)
+and terrain8_mixed (the compacted stream, the march through K1) render the
+``"torch"`` engine's frame with nothing dropped, K1 gives the plain
+version's hits on every later round's rays (refracted rays inside glass
+boxes among them), the per-light frame equals the fused one, both
+engines' gradients agree; the synthetic worlds render the ``"torch"``
+engine's frames on the cull, the MXU cast and the walk, the forced cull
+the walk's."""
 
 import os
 
@@ -886,3 +895,102 @@ def test_vertex_grads_cuda_match_torch_engine(gpu_world, gpu_world6, case):
         assert bool(torch.isfinite(a).all()), key
         atol = 1e-6 * float(b.abs().max()) if key == "['verts']" else 1e-6
         torch.testing.assert_close(a, b, rtol=1e-4, atol=atol, msg=key)
+
+
+# ---------------------------------------------------------------------------
+# the bounce rounds: the reflective and the mixed terrain, the synth worlds
+# ---------------------------------------------------------------------------
+
+BOUNCE_WORLDS = {"stress": "terrain8_stress.json", "mixed": "terrain8_mixed.json"}
+
+
+@pytest.fixture(scope="module", params=sorted(BOUNCE_WORLDS))
+def gpu_bounce(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    dev = torch.device("cuda", 0)
+    w = rtt.generate(os.path.join(REPO, "raytracer_tpu_torch", "worlds",
+                                  BOUNCE_WORLDS[request.param]))
+    scene = rtt.to_device(w.scene, dev)
+    cfg = w.config.replace(engine="cuda", width=160, height=120)
+    cam = rtt.to_device(scale_camera(w.camera, 160, w.config.width), dev)
+    return dict(name=request.param, scene=scene, cfg=cfg, cam=cam)
+
+
+def test_bounce_frame_cuda_matches_torch_engine(gpu_bounce):
+    from raytracer_tpu_torch.render.engine import render_frame_with_stats
+
+    g = gpu_bounce
+    img, stats = render_frame_with_stats(g["scene"], g["cam"], g["cfg"])
+    ref = render_frame(g["scene"], g["cam"], g["cfg"].replace(engine="torch"))
+    assert int(stats["dropped"]) == 0
+    assert torch.isfinite(img).all()
+    assert float((img - ref).abs().max()) <= 1e-5
+    if g["name"] == "stress":  # the per-light round gives the fused frame
+        assert torch.equal(img, render_frame(
+            g["scene"], g["cam"], g["cfg"].replace(fused_shadows=False)))
+
+
+def test_bounce_rounds_k1_matches_plain(gpu_bounce):
+    """K1 on each later round's rays (refracted rays inside glass boxes
+    among them in the mixed world) gives the plain version's hits."""
+    from raytracer_tpu_torch.render import engine
+
+    g = gpu_bounce
+    scene, cfg = g["scene"], g["cfg"]
+    geom = expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, cfg)
+    ro, rd, _, _ = _frame_rays_blocked(g["cam"], cfg)
+    waves = []
+    engine.radiance(scene, geom, engine.make_cast(scene, geom, cfg), cfg, ro,
+                    rd, on_round=lambda r, st: waves.append(st))
+    assert len(waves) == 3
+    inside = 0
+    for w in waves[1:]:
+        o = torch.where(w.active[:, None], w.o, 1e30).contiguous()
+        hk = ce.bvh_cast(o, w.d.contiguous(), data)
+        hp = ce.bvh_cast_reference(o, w.d.contiguous(), data)
+        for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
+            assert torch.equal(getattr(hk, name), getattr(hp, name)), name
+        inside += int((w.active & w.in_obj).sum())
+    assert (inside > 0) == (g["name"] == "mixed")
+
+
+def test_bounce_grads_cuda_match_torch_engine(gpu_bounce):
+    g = gpu_bounce
+    target = torch.zeros(g["cfg"].height, g["cfg"].width, 4,
+                         device=g["scene"].verts.device)
+    grads = {}
+    for engine in ("cuda", "torch"):
+        params = diff.trainable_params(g["scene"], g["cam"])
+        loss = diff.make_loss_fn(g["scene"], g["cam"], g["cfg"].replace(
+            engine=engine, early_exit=False), target)(params)
+        grads[engine] = diff.grad_of(loss, params)
+    for (key, a), b in zip(tree.leaves_with_paths(grads["cuda"]),
+                           tree.leaves(grads["torch"])):
+        assert torch.isfinite(a).all(), key
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=key)
+    assert float(grads["cuda"]["materials"].kr.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["mixed_cull", "sphere_cull", "sphere_mxu",
+                                  "big_walk"])
+def test_synth_frames_cuda_match_torch_engine(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from raytracer_tpu_torch import synth
+
+    dev = torch.device("cuda", 0)
+    make = {"mixed": lambda: synth.make_mixed_world(depth=3),
+            "sphere": synth.make_sphere_world,
+            "big": lambda: synth.make_big_world(4096)}[case.split("_")[0]]
+    scene_np, cam_np, cfg = make()
+    scene, cam = rtt.to_device(scene_np, dev), rtt.to_device(cam_np, dev)
+    cfg = cfg.replace(engine="cuda",
+                      pallas_kernel="mxu" if case == "sphere_mxu" else "scalar")
+    img = render_frame(scene, cam, cfg)
+    ref = render_frame(scene, cam, cfg.replace(engine="torch"))
+    assert float((img - ref).abs().max()) <= 1e-5
+    if case == "big_walk":  # forced onto the cull: the walk's frame
+        forced = render_frame(scene, cam, cfg.replace(pallas_traversal="cull"))
+        assert float((forced - img).abs().max()) <= 1e-5

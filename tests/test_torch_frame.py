@@ -7,8 +7,9 @@
 directional light, K3).  The ``"cuda"`` engine on CPU tensors goes through
 the kernel wrappers, which take the plain versions there, and must give the
 same frame; the per-light frame must equal the fused one bit for bit.  Also
-the frame plumbing (block order, u8 conversion), the CLI, and the settings
-the port does not cover yet (they raise, never switch path)."""
+the frame plumbing (block order, u8 conversion), the CLI, the settings the
+port does not cover yet (they raise, never switch path) and those that a
+later slice ported (bounce rounds, tile caps: the JAX frame)."""
 
 import os
 
@@ -23,9 +24,8 @@ from raytracer_tpu.builder import scale_camera as jscale_camera
 from raytracer_tpu.render import render_frame as jrender_frame
 from raytracer_tpu.scene import device_scene
 
-import raytracer_tpu_torch as rtt
 from raytracer_tpu_torch import cli, convert, diff
-from raytracer_tpu_torch.render import engine, shading
+from raytracer_tpu_torch.render import engine
 from raytracer_tpu_torch.render.engine import frame_to_u8, render_frame
 
 torch.set_num_threads(2)
@@ -134,7 +134,7 @@ def _material_world(tmp_path, change):
     with open(WORLD) as fh:
         doc = json.load(fh)
     key = "Kr" if change == "reflective" else "Kt"
-    doc["cubes"][0][key] = [0.3, 0.3, 0.3, 0.3]
+    doc["cubes"][-1][key] = [0.3, 0.3, 0.3, 0.3]  # the top layer
     p = tmp_path / f"{change}.json"
     p.write_text(json.dumps(doc))
     return str(p)
@@ -144,11 +144,34 @@ def _material_world(tmp_path, change):
     "traversal_cull", "kernel_mxu", "edge_aware", "spp", "tile_cap",
     "texture", "reflective", "refractive", "vertex grads"])
 def test_unported_settings_raise(frames, tmp_path, change):
-    """Settings the port does not cover raise, naming the ROADMAP item.
-    The cull and the MXU kernel are ported now: they render terrain8's
-    frame (equal to the LBVH walk's); so are edge-aware gradients, on every
-    cast (the frame unchanged), and vertex parameters."""
+    """Settings the port does not cover raise, naming the ROADMAP item:
+    spp > 1 and ``static_tile_cap`` (item 6), texture mapping (item 9).
+    The rest are ported and render: the cull and the MXU kernel give
+    terrain8's frame (equal to the LBVH walk's); so do edge-aware
+    gradients, on every cast (the frame unchanged), and vertex parameters
+    train.  A reflective world (the pixel-aligned bounce stream), a
+    refractive one (the aligned stream with the transmissive shadow march)
+    and a wavefront tile cap give the JAX package's frame at 64x48."""
     scene, cam, cfg = frames["scene"], frames["cam"], frames["cfg"]
+    if change in ("tile_cap", "reflective", "refractive"):
+        if change == "tile_cap":
+            f = _frames(WORLD, wavefront_tile_cap=0.5)
+        else:
+            f = _frames(_material_world(tmp_path, change))
+            assert f["cfg"].any_reflective == (change == "reflective")
+            assert f["cfg"].any_refractive == (change == "refractive")
+        img, stats = engine.render_frame_with_stats(
+            f["scene"], f["cam"], f["cfg"].replace(engine="cuda"))
+        np.testing.assert_allclose(img.numpy(), f["jimg"], rtol=0, atol=1e-5)
+        if change == "tile_cap":  # 2 of the frame's 4 tiles are kept
+            assert int(stats["dropped"]) > 0
+            assert not np.allclose(f["jimg"], frames["jimg"], atol=1e-3)
+        else:  # the bounces change the frame
+            assert int(stats["dropped"]) == 0
+            img0 = render_frame(f["scene"], f["cam"],
+                                f["cfg"].replace(recurse_depth=0))
+            assert int(((img - img0).abs().amax(-1) > 1e-3).sum()) > 10
+        return
     cfg = cfg.replace(engine="cuda", width=8, height=8)
     if change in ("traversal_cull", "kernel_mxu", "edge_aware"):
         ported = {"traversal_cull": cfg.replace(pallas_traversal="cull"),
@@ -163,8 +186,6 @@ def test_unported_settings_raise(frames, tmp_path, change):
         return
     elif change == "spp":
         cfg = cfg.replace(spp=4)
-    elif change == "tile_cap":
-        cfg = cfg.replace(wavefront_tile_cap=0.5)
     elif change == "texture":
         cfg = cfg.replace(texture_mapping=True)
     elif change == "vertex grads":
@@ -172,20 +193,16 @@ def test_unported_settings_raise(frames, tmp_path, change):
         assert torch.equal(params["verts"], scene.verts)
         assert params["verts"].requires_grad and params["verts"].is_leaf
         return
-    else:
-        w = rtt.generate(_material_world(tmp_path, change))
-        scene = rtt.to_device(w.scene, "cpu")
-        cfg = w.config.replace(engine="cuda", width=8, height=8)
-        assert cfg.any_reflective == (change == "reflective")
-        assert cfg.any_refractive == (change == "refractive")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(scene, cam, cfg)
     if change == "texture":  # on the MXU cast too, whose tables ignore it
         with pytest.raises(NotImplementedError, match="item 9"):
             render_frame(scene, cam, cfg.replace(pallas_kernel="mxu"))
-    if change == "refractive":  # the shadow march raises on its own too
-        with pytest.raises(NotImplementedError, match="item 5"):
-            shading.check_lights(scene, cfg)
+    if change == "spp":  # and the spp sweep's kept tiles
+        with pytest.raises(NotImplementedError, match="item 6"):
+            render_frame(scene, cam, cfg)
+        with pytest.raises(NotImplementedError, match="item 6"):
+            render_frame(scene, cam, cfg.replace(spp=1, static_tile_cap=0.5))
 
 
 def test_cli_writes_png_on_cpu(tmp_path, capsys):

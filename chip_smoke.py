@@ -111,7 +111,36 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    auto_tile_caps' caps equal to the dense frame; the sphere world on the
    cull (K4/K5) and on the MXU cast (K6), each against the "torch" engine;
    the 4,096-instance big world on the walk (K1, K3) and forced onto the
-   cull (K4/K5), the two frames equal.
+   cull (K4/K5), the two frames equal;
+23. spp > 1 at 128x96, spp 4, with every launch counter reset just before
+   each frame: terrain8 (walk), terrain6 (cull), terrain6 (MXU cast) and
+   the mixed synthetic world (both child streams) against the "torch"
+   engine (atol 1e-5), nothing dropped, a starved static_tile_cap (1e-9)
+   dropping the "torch" engine's count; auto_tile_caps' static_tile_cap
+   where it keeps fewer tiles than the frame has (terrain8 and terrain6 at
+   640x480, spp 2; the mixed world in a 192x16 strip): the "torch"
+   engine's frame, the uncapped frame, nothing dropped; render_frame(spp=4)
+   against the sum of render_frame_sum over 1-sample chunks (bit for bit
+   on the aligned walk) and 2-sample chunks (another order of sums: 1e-6);
+   make_spp_grad_fn (spp_chunk None, 1, 2; with vertices and edge-aware
+   grads None, 2) against the "torch" engine's at rtol 1e-4 / atol 1e-6
+   (verts: 1e-6 max|g|);
+24. the kernels on this path's rays: K1 and K2 identical to their plain
+   versions on a jittered sample of terrain8_stress at 640x480, rounds 0
+   and 1; K4 and K5 on a jittered sample's kept tiles of terrain6;
+25. the backward's recompute: between the end of the forward and the end
+   of backward() the K2, K3 and K5 counters do not move and K1's (K4's)
+   moves by the forward's count less the kept-tile probe's (terrain8
+   fused and per light, terrain6, terrain8_stress on its kept tiles);
+26. the JAX package's heavy-spp shapes on the port's worlds, with
+   auto_tile_caps' static_tile_cap, early_exit off and a zero target:
+   terrain8 1024x1024 spp 16 (a frame), terrain8_stress 1920x1080 spp 128
+   (fwd+bwd of materials, lights and camera, spp_chunk None) and the same
+   with vertices and edge-aware grads: one warm step, then 2 timed (CUDA
+   events; the minimum and both), Mrays/s = W*H*spp / ms / 1e3, dropped
+   (must be 0), peak memory over what was allocated before the step
+   (within 1.25x of the same step's at spp 8), and
+   the idle share and top kernels of one profiled step at spp 8.
 
 Beside each kernel's ms per launch (CUDA events around the wrapper: the
 ctypes call and the output allocation included) the device time alone is
@@ -134,8 +163,8 @@ once (no staged copy of the columns: no implementation needs one).
 
 The line before the last is a JSON object describing each kernel (K1's
 exact_uv and visits instantiations and K4's exact_uv one as rows of their
-own); the last line is ``{"ok": true, "device": {...}}``.  Imports nothing
-of JAX.
+own; ``spp_launches``: its launches in each phase-26 cell); the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -190,6 +219,18 @@ ATOL_FRAME = 1e-5
 RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-6
 LR = 0.05  # the CLI's --lr default
 VERTS = "['verts']"  # the vertex leaf's path in a parameter tree
+SPP_SMALL = (128, 96)  # the spp correctness phases
+SPP_REF = 8  # the spp of the memory comparison and the profiled step
+# the JAX package's heavy-spp shapes (bench.py _item_world8_1024_spp16,
+# _item_world8_stress_1080p_spp128, _item_world8_stress_geomgrad) on the
+# port's worlds of the same shapes: label, world, size, spp, kind
+SPP_CELLS = [
+    ("terrain8 1024x1024 spp 16 frame", WORLD, (1024, 1024), 16, "frame"),
+    ("terrain8_stress 1920x1080 spp 128 fwd+bwd", WORLD_STRESS,
+     (1920, 1080), 128, "step"),
+    ("terrain8_stress 1920x1080 spp 128 geometry fwd+bwd", WORLD_STRESS,
+     (1920, 1080), 128, "geomgrad"),
+]
 
 
 def _ms(fn, reps=REPS, warmup=True):
@@ -1180,7 +1221,7 @@ def _frame_checks(label, img, ref, size, atol=ATOL_FRAME):
 
 
 def _bounces(dev, smi):
-    """Phases 19-23: the bounce rounds.  terrain8_stress (reflective: the
+    """Phases 19-22: the bounce rounds.  terrain8_stress (reflective: the
     pixel-aligned stream, K1 and K2 in every round) and terrain8_mixed
     (reflective and refractive: the compacted 2x stream, the transmissive
     shadow march through K1) at both sizes, their 1080p steps, and the
@@ -1457,6 +1498,403 @@ def _bounces(dev, smi):
     print(f"big world 4096: the forced cull's frame == the walk's (max abs "
           f"diff {d_big:.3g}), launches {counts}")
     out["synth"]["big_cull_vs_walk"] = d_big
+    return out
+
+
+def _spp(dev, smi):
+    """Phases 23-26: spp > 1.  The sweep's frames, kept tiles, chunk sums
+    and gradients at 128x96 against the ``"torch"`` engine; K1/K2 on a
+    jittered sample's rays and K4/K5 on a kept-tile batch against their
+    plain versions; the backward's recompute launching no any-hit query;
+    then the JAX package's heavy-spp shapes at full width, timed.  Returns
+    the numbers for the report."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import synth, tree
+    from raytracer_tpu_torch.builder import scale_camera
+    from raytracer_tpu_torch.diff import (grad_of, make_loss_fn,
+                                          make_spp_grad_fn, trainable_params)
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render import cull
+    from raytracer_tpu_torch.render import engine as eng
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+    from raytracer_tpu_torch.render.shading import shadow_rays
+
+    out = {"small": {}, "static": {}, "sums": {}, "grads": {}, "kernels": {},
+           "recompute": {}, "cells": {}}
+    small, main = SPP_SMALL, SIZES[0]
+    spp = 4
+    inf = float("inf")
+
+    def world(path, size, zoom=1, **change):
+        w = rtt.generate(path)
+        cam = rtt.to_device(scale_camera(w.camera, size[0],
+                                         zoom * w.config.width), dev)
+        return (rtt.to_device(w.scene, dev), cam, w.config.replace(
+            engine="cuda", width=size[0], height=size[1], **change))
+
+    def mixed(size, zoom=1):
+        s, c, cfg = synth.make_mixed_world(depth=3)
+        return (rtt.to_device(s, dev), rtt.to_device(scale_camera(
+            c, size[0], zoom * cfg.width), dev), cfg.replace(
+                engine="cuda", width=size[0], height=size[1]))
+
+    def frames(label, scene, cam, cfg, used, atol=ATOL_FRAME):
+        """The cuda frame (counters reset just before) against the torch
+        engine's; both drop counts.  Returns (img, dropped, counts, diff)."""
+        (img, st), counts = _counted(label, lambda: eng.render_frame_with_stats(
+            scene, cam, cfg), used)
+        ref, st_ref = eng.render_frame_with_stats(scene, cam, cfg.replace(
+            engine="torch"))
+        if tuple(img.shape) != (cfg.height, cfg.width, 4) or not bool(
+                torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: shape or non-finite values")
+        diff = float((img - ref).abs().max())
+        if diff > atol or int(st["dropped"]) != int(st_ref["dropped"]):
+            raise AssertionError(f"{label}: max abs diff {diff}, dropped "
+                                 f"{int(st['dropped'])} / torch engine "
+                                 f"{int(st_ref['dropped'])}")
+        return img, int(st["dropped"]), counts, diff
+
+    # ---- phase 23: correctness at 128x96, spp 4 ----------------------------
+    walk = ("bvh_cast", "bvh_occlude2")
+    cull_used = ("cull_cast", "cull_occlude")
+    small_worlds = {
+        "terrain8 walk": (world(WORLD, small), walk),
+        "terrain6 cull": (world(WORLD6, small), cull_used),
+        "terrain6 MXU": (world(WORLD6, small, pallas_kernel="mxu"),
+                         ("mxu_cast",)),
+        "mixed synth (cull, both child streams)": (mixed(small),
+                                                   ("cull_cast",)),
+    }
+    for label, ((scene, cam, cfg), used) in small_worlds.items():
+        c = cfg.replace(spp=spp)
+        img, dropped, counts, diff = frames(f"{label} spp {spp}", scene,
+                                            cam, c, used)
+        one = eng.render_frame(scene, cam, cfg)
+        if dropped != 0 or float((img - one).abs().max()) < 1e-3:
+            raise AssertionError(f"{label}: dropped {dropped}, or the "
+                                 "samples left the spp-1 frame as it was")
+        _, starved, _, d_st = frames(f"{label} starved", scene, cam,
+                                     c.replace(static_tile_cap=1e-9), used)
+        if starved <= 0:
+            raise AssertionError(f"{label}: a starved cap dropped nothing")
+        out["small"][label] = {"max_abs_diff": diff, "launches": counts,
+                               "starved_dropped": starved,
+                               "starved_max_abs_diff": d_st}
+        print(f"spp {spp} {label} {small[0]}x{small[1]}: cuda == torch "
+              f"engine (max abs diff {diff:.3g}), dropped 0, launches "
+              f"{counts}; static_tile_cap=1e-9 drops {starved} == the torch "
+              f"engine's (frames within {d_st:.3g})")
+
+    # kept tiles at auto_tile_caps' cap, where the cap keeps fewer tiles
+    # than the frame has: terrain8 and terrain6 at 640x480 (spp 2), the
+    # mixed world in a 192x16 strip, its cluster at half size (spp 4)
+    static_worlds = {
+        f"terrain8 walk {main[0]}x{main[1]} spp 2": (
+            world(WORLD, main, spp=2), walk),
+        f"terrain6 cull {main[0]}x{main[1]} spp 2": (
+            world(WORLD6, main, spp=2), cull_used),
+        f"terrain6 MXU {main[0]}x{main[1]} spp 2": (
+            world(WORLD6, main, spp=2, pallas_kernel="mxu"), ("mxu_cast",)),
+        "mixed synth 192x16 strip spp 4": (
+            (lambda s, c, cfg: (s, c, cfg.replace(spp=spp)))(
+                *mixed((192, 16), zoom=2)), ("cull_cast",)),
+    }
+    for label, ((scene, cam, cfg), used) in static_worlds.items():
+        cap = eng.auto_tile_caps(scene, cam, cfg)["static_tile_cap"]
+        if not 0.0 < cap < 1.0:
+            raise AssertionError(f"{label}: auto static_tile_cap {cap}")
+        img, dropped, counts, diff = frames(
+            f"{label} static_tile_cap {cap:.4f}", scene, cam,
+            cfg.replace(static_tile_cap=cap), used)
+        dense = eng.render_frame(scene, cam, cfg)
+        d_dense = float((img - dense).abs().max())
+        if dropped != 0 or d_dense > ATOL_FRAME:
+            raise AssertionError(f"{label}: dropped {dropped}, the kept "
+                                 f"tiles' frame {d_dense} from the dense")
+        out["static"][label] = {"cap": cap, "max_abs_diff": diff,
+                                "vs_dense": d_dense, "launches": counts}
+        print(f"{label}: auto static_tile_cap {cap:.4f}: cuda == torch "
+              f"engine (max abs diff {diff:.3g}), == the uncapped frame "
+              f"({d_dense:.3g}), dropped 0, launches {counts}")
+
+    # render_frame(spp) against render_frame_sum over chunks of the grid
+    for label in ("terrain8 walk", "mixed synth (cull, both child streams)"):
+        (scene, cam, cfg), _ = small_worlds[label]
+        img = eng.render_frame(scene, cam, cfg.replace(spp=spp))
+        offs, _ = eng.spp_jitter_grid(spp, cfg.width, cfg.height, dev)
+        rec = {}
+        for chunk in (1, 2):
+            acc = torch.zeros_like(img)
+            for i in range(0, spp, chunk):
+                acc = acc + eng.render_frame_sum(scene, cam, cfg,
+                                                 offs[i:i + chunk])
+            rec[chunk] = float((acc / spp - img).abs().max())
+        # one-sample chunks add in render_frame's order: bit for bit where
+        # no atomic sum takes part (the aligned walk); two-sample chunks add
+        # in another order (ulps)
+        exact = label == "terrain8 walk"
+        if (exact and rec[1] != 0.0) or max(rec.values()) > 1e-6:
+            raise AssertionError(f"{label}: chunk sums differ from the spp "
+                                 f"frame by {rec}")
+        out["sums"][label] = rec
+        print(f"{label}: render_frame(spp={spp}) == the sum of "
+              f"render_frame_sum chunks / {spp}: 1-sample chunks max abs "
+              f"diff {rec[1]:.3g}{' (bit for bit)' if exact else ''}, "
+              f"2-sample chunks {rec[2]:.3g}")
+
+    # make_spp_grad_fn, whole and chunked, against the torch engine
+    (scene, cam, cfg), _ = small_worlds["terrain8 walk"]
+    cfg = cfg.replace(early_exit=False)
+    target = torch.zeros(small[1], small[0], 4, device=dev)
+    for vertices in (False, True):
+        c = cfg.replace(edge_aware_grads=vertices)
+
+        def run(engine, chunk):
+            p = trainable_params(scene, cam, include_vertices=vertices)
+            return make_spp_grad_fn(scene, cam, c.replace(engine=engine),
+                                    spp, spp_chunk=chunk)(p, target)
+
+        loss_t, g_t = run("torch", None)
+        for chunk in ((None, 2) if vertices else (None, 1, 2)):
+            loss_c, g_c = run("cuda", chunk)
+            err = 0.0
+            for (key, a), b in zip(tree.leaves_with_paths(g_c),
+                                   tree.leaves(g_t)):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"spp grad {key} not finite")
+                atol = (ATOL_GRAD * float(b.abs().max()) if key == VERTS
+                        else ATOL_GRAD)
+                torch.testing.assert_close(
+                    a, b, rtol=RTOL_GRAD, atol=atol,
+                    msg=lambda m, key=key: f"spp grad {key}: {m}")
+                err = max(err, float((a - b).abs().max()))
+            if float(g_c["cam_pos"].abs().max()) == 0.0 or (
+                    vertices and float(g_c["verts"].abs().max()) == 0.0):
+                raise AssertionError("spp grads: camera or vertex grads 0")
+            name = f"{'vertices ' if vertices else ''}spp_chunk={chunk}"
+            out["grads"][name] = {"loss": float(loss_c),
+                                  "loss_torch": float(loss_t),
+                                  "max_abs_err": err}
+            print(f"make_spp_grad_fn terrain8 {small[0]}x{small[1]} spp "
+                  f"{spp} {name}: loss {float(loss_c):.6f} (torch engine "
+                  f"{float(loss_t):.6f}), grads == torch engine (max abs "
+                  f"{err:.3g})")
+
+    # ---- phase 24: the kernels on this path's rays --------------------------
+    scene, cam, cfg = world(WORLD_STRESS, main)
+    geom = expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, cfg)
+    offs, shift = eng.spp_jitter_grid(spp, main[0], main[1], dev)
+    jitter = (offs[1] + shift) % 1.0
+    ro, rd, _, _ = eng._frame_rays_blocked(cam, cfg, jitter)
+    waves = []
+    eng.radiance(scene, geom, eng.make_cast(scene, geom, cfg), cfg, ro, rd,
+                 on_round=lambda r, st: waves.append(st))
+    for i, w in enumerate(waves[:2]):
+        o = torch.where(w.active[:, None], w.o, 1e30).contiguous()
+        d = w.d.contiguous()
+        hk = ce.bvh_cast(o, d, data)
+        _compare_hits(f"K1 stress jittered round {i}", hk,
+                      ce.bvh_cast_reference(o, d, data))
+        h_valid = w.active & hk.valid
+        pos = w.o + torch.where(hk.valid, hk.t, 1.0)[:, None] * w.d
+        q = shadow_rays(scene, pos, h_valid)
+        q = (q[0], q[1], q[2], q[3], q[4].contiguous(),
+             torch.full_like(q[2], inf))
+        bk = ce.bvh_occlude2(*q, data)
+        bp = ce.bvh_occlude2_reference(*q, data)
+        for k in range(2):
+            if not torch.equal(bk[k], bp[k]):
+                raise AssertionError(f"K2 stress jittered round {i}: query "
+                                     f"{k + 1} differs from plain")
+        out["kernels"][f"stress_round_{i}"] = {
+            "live": int(w.active.sum()), "hits": int(h_valid.sum()),
+            "blocked": [int(bk[0].sum()), int(bk[1].sum())]}
+        print(f"terrain8_stress {main[0]}x{main[1]} jittered sample round "
+              f"{i}: {int(w.active.sum())} live rays; K1 == plain, K2 == "
+              f"plain (blocked {int(bk[0].sum())} + {int(bk[1].sum())})")
+    scene, cam, cfg = world(WORLD6, main)
+    geom = expand_geometry(scene)
+    data = ce.prepare_cast(scene, geom, cfg)
+    cap = eng.auto_tile_caps(scene, cam, cfg)["static_tile_cap"]
+    lane, _ = eng._static_tile_lanes(eng.make_cast(scene, geom, cfg), cam,
+                                     cfg.replace(static_tile_cap=cap))
+    ro, rd, _, _ = eng._frame_rays_blocked(cam, cfg, jitter)
+
+    def take(x):
+        return x.reshape(-1, 1024, 3)[lane].reshape(-1, 3).contiguous()
+
+    ro, rd = take(ro), take(rd)
+    tile = cull.tile_rows_of(cfg) * cull.LANES
+
+    def lists(o, d):
+        lay = cull.CullLayout.of(o.shape[0], cfg.pallas_ray_chunk, tile)
+        o_p, d_p = lay.pad_rays(o, d, 1.0e30)
+        return (lay, o_p, d_p) + cull.tile_candidates(
+            o_p, d_p, tile, data.tables.inst_f32, cull.MAX_CAND)
+
+    lay, o_p, d_p, cand, info = lists(ro, rd)
+    hk = cull.cull_cast(o_p, d_p, cand, info, tile, data.tables)
+    _compare_hits("K4 terrain6 kept tiles", hk, cull.cull_cast_reference(
+        o_p, d_p, cand, info, tile, data.tables))
+    valid = lay.unpad(hk.valid)
+    t = torch.where(valid, lay.unpad(hk.t), 1.0)
+    o1, d1, dist, o2, d2 = shadow_rays(scene, ro + t[:, None] * rd, valid)
+    blocked = []
+    for qname, (o, d, mt) in (("point", (o1, d1, dist)),
+                              ("directional", (o2, d2.contiguous(),
+                                               torch.full_like(dist, inf)))):
+        lay_q, o_p, d_p, cand, info = lists(o, d)
+        mt_p = lay_q.pad(mt, 0.0)
+        bk = cull.cull_occlude(o_p, d_p, mt_p, cand, info, tile, data.tables)
+        if not torch.equal(bk, cull.cull_occlude_reference(
+                o_p, d_p, mt_p, cand, info, tile, data.tables)):
+            raise AssertionError(f"K5 terrain6 kept tiles {qname}: differs "
+                                 "from plain")
+        blocked.append(int(bk.sum()))
+    out["kernels"]["terrain6_kept_tiles"] = {
+        "cap": cap, "tiles": int(lane.numel()),
+        "hits": int(valid.sum()), "blocked": blocked}
+    print(f"terrain6 {main[0]}x{main[1]} jittered sample on the kept tiles "
+          f"({lane.numel()} of {(main[0] // 32) * (main[1] // 32)}, cap "
+          f"{cap:.4f}): {int(valid.sum())} hits; K4 == plain, K5 == plain "
+          f"(blocked {blocked[0]} + {blocked[1]})")
+
+    # ---- phase 25: the backward's recompute launches no any-hit query -------
+    cases = {
+        "terrain8 walk (K2)": (world(WORLD, small), "bvh_cast"),
+        "terrain8 per light (K3)": (world(WORLD, small, fused_shadows=False),
+                                    "bvh_cast"),
+        "terrain6 cull (K5)": (world(WORLD6, small), "cull_cast"),
+        f"terrain8_stress {main[0]}x{main[1]} kept tiles (K2, 3 rounds)": (
+            world(WORLD_STRESS, main), "bvh_cast"),
+    }
+    wrappers = _kernel_wrappers()
+    any_hit = ("bvh_occlude2", "bvh_occlude", "cull_occlude")
+    for label, ((scene, cam, cfg), cast) in cases.items():
+        cfg = cfg.replace(spp=spp, early_exit=False)
+        if "kept tiles" in label:
+            cfg = cfg.replace(static_tile_cap=eng.auto_tile_caps(
+                scene, cam, cfg)["static_tile_cap"])
+        for k in wrappers.values():
+            k.launches = 0
+        geom = expand_geometry(scene)
+        eng._spp_lane(scene, geom, eng.prepare_cast(scene, geom, cfg), cam,
+                      cfg)
+        torch.cuda.synchronize()
+        probe = wrappers[cast].launches
+        for k in wrappers.values():
+            k.launches = 0
+        params = trainable_params(scene, cam)
+        loss = make_loss_fn(scene, cam, cfg, torch.zeros(
+            cfg.height, cfg.width, 4, device=dev))(params)
+        torch.cuda.synchronize()
+        fwd = {n: k.launches for n, k in wrappers.items()}
+        grads = grad_of(loss, params)
+        torch.cuda.synchronize()
+        bwd = {n: k.launches - fwd[n] for n, k in wrappers.items()}
+        if (any(bwd[n] for n in any_hit) or not any(fwd[n] for n in any_hit)
+                or bwd[cast] != fwd[cast] - probe
+                or not bool(torch.isfinite(grads["cam_pos"]).all())):
+            raise AssertionError(f"{label}: forward launches {fwd}, "
+                                 f"backward {bwd}, probe {probe}")
+        out["recompute"][label] = {"forward": fwd, "backward": bwd,
+                                   "probe": probe}
+        print(f"recompute {label} spp {spp}: forward launches "
+              f"{ {n: c for n, c in fwd.items() if c} } (probe {probe}), "
+              f"backward { {n: c for n, c in bwd.items() if c} }: no "
+              "any-hit query, every sample's casts again")
+
+    # ---- phase 26: the JAX package's heavy-spp shapes, full width -----------
+    for label, path, size, n_spp, kind in SPP_CELLS:
+        scene, cam, cfg = world(path, size, early_exit=False)
+        cap = eng.auto_tile_caps(scene, cam, cfg)["static_tile_cap"]
+        cfg = cfg.replace(static_tile_cap=cap,
+                          edge_aware_grads=kind == "geomgrad")
+        rays = size[0] * size[1]
+        target0 = torch.zeros(size[1], size[0], 4, device=dev)
+
+        def make(s):
+            if kind == "frame":
+                def frame():
+                    with torch.no_grad():
+                        img, st = eng.render_frame_with_stats(
+                            scene, cam, cfg.replace(spp=s))
+                    return img, st["dropped"]
+                return frame
+            step = make_spp_grad_fn(scene, cam, cfg, s, with_stats=True)
+
+            def fwd_bwd():
+                p = trainable_params(scene, cam,
+                                     include_vertices=kind == "geomgrad")
+                loss, grads, st = step(p, target0)
+                return (loss, grads), st["dropped"]
+            return fwd_bwd
+
+        run = make(n_spp)
+        used = walk
+        (res, dropped), counts = _counted(f"{label} warm-up", run, used)
+        if int(dropped) != 0:
+            raise AssertionError(f"{label}: dropped {int(dropped)}")
+        if kind == "frame":
+            ok = (tuple(res.shape) == (size[1], size[0], 4)
+                  and bool(torch.isfinite(res).all())
+                  and float((res[..., :3].amax(-1) > 0).float().mean())
+                  > 0.05)
+        else:
+            loss, grads = res
+            ok = math.isfinite(float(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in tree.leaves(grads))
+            ok = ok and float(grads["cam_pos"].abs().max()) > 0.0
+            if kind == "geomgrad":
+                ok = ok and float(grads["verts"].abs().max()) > 0.0
+        if not ok:
+            raise AssertionError(f"{label}: non-finite, empty or zero "
+                                 "result")
+        torch.cuda.synchronize()
+        # the step's own peak: over what earlier phases left allocated
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        run_ref = make(SPP_REF)
+        base_ref = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        run_ref()
+        torch.cuda.synchronize()
+        peak_ref = torch.cuda.max_memory_allocated(dev) - base_ref
+        if peak > 1.25 * peak_ref:
+            raise AssertionError(f"{label}: peak memory {peak} at spp "
+                                 f"{n_spp} > 1.25 x {peak_ref} at spp "
+                                 f"{SPP_REF}")
+        prof = _profile(run_ref, smi, steps=1,
+                        label=f"{label} at spp {SPP_REF}")
+        ms = min(times)
+        rec = {"spp": n_spp, "size": list(size), "static_tile_cap": cap,
+               "ms": ms, "ms_both": times,
+               "mrays_per_s": rays * n_spp / ms / 1e3, "dropped": 0,
+               "launches": counts, "peak_bytes": peak,
+               "allocated_before_bytes": base,
+               f"peak_bytes_spp{SPP_REF}": peak_ref,
+               "peak_ratio": peak / peak_ref,
+               f"profile_spp{SPP_REF}": prof}
+        out["cells"][label] = rec
+        print(f"{label} [{smi}]: {ms:.3f} ms (min of {times[0]:.3f}, "
+              f"{times[1]:.3f}; CUDA events after one warm-up), "
+              f"{rec['mrays_per_s']:.3f} Mrays/s, dropped 0, kept-tile cap "
+              f"{cap:.4f}, launches {counts}, peak memory {peak / 2**20:.1f} "
+              f"MiB over the {base / 2**20:.1f} MiB allocated before "
+              f"({rec['peak_ratio']:.3f} x spp {SPP_REF}'s "
+              f"{peak_ref / 2**20:.1f} MiB)")
     return out
 
 
@@ -1878,6 +2316,15 @@ def main(argv=None) -> int:
     report["bounces"] = _bounces(dev, smi)
     report["bounces"]["seconds"] = time.perf_counter() - t_b
     print(f"bounce phases: {report['bounces']['seconds']:.1f} s")
+    # ---- phases 23-26: spp > 1 ----------------------------------------------
+    t_s = time.perf_counter()
+    report["spp"] = _spp(dev, smi)
+    report["spp"]["seconds"] = time.perf_counter() - t_s
+    print(f"spp phases: {report['spp']['seconds']:.1f} s")
+    spp_launches = {}
+    for label, rec in report["spp"]["cells"].items():
+        for name, n in rec["launches"].items():
+            spp_launches.setdefault(name, {})[label] = n
     report["bounds"] = bounds_at
     report["timing"] = timing
     report["launches"] = launches
@@ -1919,7 +2366,8 @@ def main(argv=None) -> int:
          "plain_ms": timing[main_key][f"{key}_plain_ms"],
          "bound_ms": bounds[name]["bound_ms"],
          "bound_by": bounds[name]["bound_by"], "library_ms": None,
-         "device_ms": timing[main_key][f"{key}_device_ms"]}
+         "device_ms": timing[main_key][f"{key}_device_ms"],
+         "spp_launches": spp_launches.get(name, {})}
         for name, source, replaces, key in rows]}
     report["kernels"] = kernels_line["kernels"]
     report["seconds"] = time.perf_counter() - t_start

@@ -3,7 +3,8 @@ assembly (counterpart of ``raytracer_tpu/render``)."""
 
 from .cast import Hit, hit_shading_attrs
 from .engine import (auto_tile_caps, frame_to_u8, make_cast, radiance,
-                     render_frame, render_frame_with_stats, render_rays_stats)
+                     render_frame, render_frame_sum, render_frame_with_stats,
+                     render_rays_stats, spp_jitter_grid)
 from .geometry import WorldGeometry, camera_rays, expand_geometry
 from .shading import illuminate
 
@@ -19,6 +20,8 @@ __all__ = [
     "make_cast",
     "radiance",
     "render_frame",
+    "render_frame_sum",
     "render_frame_with_stats",
     "render_rays_stats",
+    "spp_jitter_grid",
 ]

@@ -28,6 +28,17 @@ children (DEVIATIONS.md: one flag per child type).  Frames are
 differentiable: the casts carry their own VJP rules (``cast_vjp.py``);
 ``edge_aware_grads`` adds the silhouette band's boundary term to the
 backward and leaves the forward frame bit for bit as it is.
+
+At ``spp > 1`` a frame is the mean of ``spp`` sample frames, each through
+jittered sub-pixel rays (``spp_jitter_grid``: R2 offsets plus a per-pixel
+toroidal shift), summed by ``_scan_samples`` over cast tables built once a
+frame (``prepare_cast``).  Each sample runs under a
+``torch.utils.checkpoint`` whose backward recomputes it, so reverse-mode
+memory does not grow with spp beyond its shadow masks (1 bit a ray and
+query), which the recompute replays (``shading.shadow_masks``) instead of
+running the any-hit queries again.  ``static_tile_cap`` renders each sample
+on the 1024-ray tiles kept by one probe of the pixel-centre frame
+(``_static_tile_lanes``).
 """
 
 from __future__ import annotations
@@ -37,16 +48,18 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from .. import raymath as rm
 from ..scene import Camera, RenderConfig, Scene
+from . import cuda_engine
 from .cast import CastFn, Hit, hit_shading_attrs
 from .cast_vjp import pack_reparam_geo
-from .cuda_engine import _use_walk, make_cuda_cast, prepare_cast
+from .cuda_engine import _use_walk, make_cuda_cast
 from .cull import make_cull_cast
 from .geometry import WorldGeometry, camera_rays, expand_geometry
 from .mxu import make_mxu_cast, prepare_mxu_cast
-from .shading import gather_material_rows, illuminate
+from .shading import gather_material_rows, illuminate, mask_tape_contexts
 
 BLOCK = 32  # screen-space tile edge: one 32x32 block of rays
 # Rays per engine tile (BLOCK * BLOCK): the granularity of the tile caps
@@ -56,13 +69,6 @@ TILE_LANES = 1024
 def check_config(scene: Scene, cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for any setting
     the port does not cover yet (never a silent switch of path)."""
-    if cfg.spp > 1:
-        raise NotImplementedError(
-            "spp > 1 is not ported (ROADMAP.md Queue 1 item 6: spp)")
-    if cfg.static_tile_cap > 0.0:
-        raise NotImplementedError(
-            "static_tile_cap (the spp sweep's kept tiles) is not ported "
-            "(ROADMAP.md Queue 1 item 6: spp)")
     if cfg.texture_mapping:
         raise NotImplementedError(
             "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
@@ -397,25 +403,39 @@ def clamp_frame(acc):
     return torch.minimum(acc, acc.new_ones(()))
 
 
-def make_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig) -> CastFn:
-    """The engine's cast (``raytracer_tpu/render/engine.py`` ``make_cast``
-    and ``prepare_cast``) for ``cfg.engine`` (``"cuda"`` kernels or the
-    ``"torch"`` plain versions): ``pallas_kernel="mxu"`` takes the MXU cast
-    (K6; no shadow queries), ``"scalar"`` the LBVH walk (K1-K3) or, by
+def prepare_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig):
+    """The cast's tables (``raytracer_tpu/render/engine.py``
+    ``prepare_cast``), built once a frame under ``no_grad`` and shared by
+    its spp samples: ``mxu.prepare_mxu_cast`` for ``pallas_kernel="mxu"``,
+    else ``cuda_engine.prepare_cast`` (the walk's LBVH or the cull's
+    tables)."""
+    if cfg.pallas_kernel == "mxu":
+        return prepare_mxu_cast(scene, geom, cfg)
+    if cfg.pallas_kernel != "scalar":
+        raise ValueError(f"unknown pallas_kernel {cfg.pallas_kernel!r} "
+                         "(expected 'scalar' or 'mxu')")
+    return cuda_engine.prepare_cast(scene, geom, cfg)
+
+
+def make_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig,
+              aux=None) -> CastFn:
+    """The engine's cast (``raytracer_tpu/render/engine.py`` ``make_cast``)
+    over the tables ``aux`` of :func:`prepare_cast` (built here when None)
+    for ``cfg.engine`` (``"cuda"`` kernels or the ``"torch"`` plain
+    versions): ``pallas_kernel="mxu"`` takes the MXU cast (K6; no shadow
+    queries), ``"scalar"`` the LBVH walk (K1-K3) or, by
     ``pallas_traversal``, the candidate-list cull (K4/K5).  Under
     ``edge_aware_grads`` the closest-hit cast takes the reparam rule over
     the packed rows of ``geom`` (its graph reaches ``scene.verts``); the
     kernels' tables stay out of every graph."""
+    if aux is None:
+        aux = prepare_cast(scene, geom, cfg)
     geo = pack_reparam_geo(geom) if cfg.edge_aware_grads else None
     if cfg.pallas_kernel == "mxu":
-        return make_mxu_cast(prepare_mxu_cast(scene, geom, cfg), cfg, geo)
-    if cfg.pallas_kernel != "scalar":
-        raise ValueError(f"unknown pallas_kernel {cfg.pallas_kernel!r} "
-                         "(expected 'scalar' or 'mxu')")
-    data = prepare_cast(scene, geom, cfg)
+        return make_mxu_cast(aux, cfg, geo)
     if _use_walk(cfg, scene.inst_pos.shape[0]):
-        return make_cuda_cast(data, cfg, geo)
-    return make_cull_cast(data, cfg, geo)
+        return make_cuda_cast(aux, cfg, geo)
+    return make_cull_cast(aux, cfg, geo)
 
 
 def _to_blocks(x, hp, wp):
@@ -450,29 +470,155 @@ def _frame_rays_blocked(camera: Camera, cfg: RenderConfig, jitter=None):
     return _to_blocks(ray_o, hp, wp), _to_blocks(ray_d, hp, wp), hp, wp
 
 
-def render_frame_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig):
-    """Like ``render_frame``, also returning ``{"dropped": i32}``: the
-    children and primary hits that a queue or tile cap deleted (0 unless a
-    cap is too small; raise it, or take ``auto_tile_caps``)."""
-    geom = expand_geometry(scene)
-    cast_fn = make_cast(scene, geom, cfg)
-    ro_b, rd_b, hp, wp = _frame_rays_blocked(camera, cfg)
-    # the angular size of a pixel at the image centre (_render_one_stats)
+def spp_jitter_grid(spp: int, width: int, height: int, device=None):
+    """The sub-pixel sample pattern of an spp frame (``engine.
+    spp_jitter_grid``): ``(offs [spp, 2], shift [H, W, 2])``, the R2
+    low-discrepancy offsets of the samples and a per-pixel toroidal shift
+    that decorrelates them across pixels.  Sample ``s`` jitters by ``(offs[s]
+    + shift) % 1``.  FP32 in the JAX package's order of operations (its
+    Python-float constants round to FP32 before each product, as torch's
+    scalars do)."""
+    g = 1.32471795724474602596  # the plastic constant
+    a1, a2 = 1.0 / g, 1.0 / (g * g)
+    s = torch.arange(spp, dtype=torch.float32, device=device)
+    offs = torch.stack([(0.5 + a1 * s) % 1.0, (0.5 + a2 * s) % 1.0], -1)
+    xx = torch.arange(width, dtype=torch.float32, device=device)[None, :]
+    yy = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    shift = torch.stack(
+        [((a1 * xx + a2 * yy) % 1.0).expand(height, width),
+         ((a2 * xx + a1 * yy) % 1.0).expand(height, width)], -1)
+    return offs, shift
+
+
+def _render_one_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+                      camera: Camera, cfg: RenderConfig, jitter, lane=None):
+    """One sample frame ``[H, W, 4]`` and its drop count.  ``jitter``
+    ``[H, W, 2]`` or None (the pixel corners); ``lane`` (the kept tiles of
+    :func:`_static_tile_lanes`, sorted) renders only those 1024-ray tiles
+    of the block-major rays and scatters them back into a zero frame (the
+    other tiles hold no hit), the gradient flowing to the kept tiles."""
+    ro_b, rd_b, hp, wp = _frame_rays_blocked(camera, cfg, jitter)
+    # the angular size of a pixel at the image centre (camera.cu:33-42)
     pixel_angle = None
     if cfg.edge_aware_grads:
         pixel_angle = (1.0 / (camera.unit_to_pixels
                               * camera.global_near)).detach()
-    img_b, dropped = render_rays_stats(scene, geom, cast_fn, cfg, ro_b, rd_b,
-                                       pixel_angle)
+    if lane is None:
+        img_b, dropped = render_rays_stats(scene, geom, cast_fn, cfg, ro_b,
+                                           rd_b, pixel_angle)
+    else:
+        T = ro_b.shape[0] // TILE_LANES
+
+        def take(x):
+            return x.reshape(T, TILE_LANES, 3)[lane].reshape(-1, 3)
+
+        img_c, dropped = render_rays_stats(scene, geom, cast_fn, cfg,
+                                           take(ro_b), take(rd_b),
+                                           pixel_angle)
+        img_b = img_c.new_zeros(T, TILE_LANES, 4).index_copy(
+            0, lane, img_c.reshape(-1, TILE_LANES, 4)).reshape(-1, 4)
     img = _from_blocks(img_b, hp, wp)
-    return img[: cfg.height, : cfg.width], {"dropped": dropped}
+    return img[: cfg.height, : cfg.width], dropped
+
+
+def _sample_frame(scene, geom, aux, camera, cfg: RenderConfig, off, shift,
+                  lane=None):
+    """One jittered sample frame over the frame's tables ``aux``.  Under a
+    kept-tile ``lane`` the wavefront and child caps are off: they would
+    apply their full-frame share to the already compacted queue."""
+    if lane is not None:
+        cfg = cfg.replace(wavefront_tile_cap=0.0, child_tile_cap=0.0)
+    cast_fn = make_cast(scene, geom, cfg, aux=aux)
+    return _render_one_stats(scene, geom, cast_fn, camera, cfg,
+                             (off + shift) % 1.0, lane=lane)
+
+
+def _scan_samples(scene, geom, aux, camera, cfg: RenderConfig, offs, shift,
+                  remat: bool = True, lane=None):
+    """The SUM of the sample frames at the offsets ``offs [k, 2]`` and the
+    summed drop count.  ``remat=True`` runs each sample under
+    ``torch.utils.checkpoint`` (non-reentrant): reverse mode recomputes a
+    sample instead of keeping its intermediates, and the recompute replays
+    the sample's shadow masks from its tape (``shading.mask_tape_contexts``)
+    instead of querying again.  Without grad mode (a frame to view, the
+    first pass of a chunked step) nothing is recomputed: no checkpoint."""
+
+    def sample(off):
+        return _sample_frame(scene, geom, aux, camera, cfg, off, shift,
+                             lane=lane)
+
+    acc = torch.zeros(cfg.height, cfg.width, 4, dtype=torch.float32,
+                      device=offs.device)
+    drops = torch.zeros((), dtype=torch.int32, device=offs.device)
+    for off in offs:
+        if remat and torch.is_grad_enabled():
+            img, d = torch.utils.checkpoint.checkpoint(
+                sample, off, use_reentrant=False, preserve_rng_state=False,
+                context_fn=mask_tape_contexts)
+        else:
+            img, d = sample(off)
+        acc = acc + img
+        drops = drops + d
+    return acc, drops
+
+
+def _spp_lane(scene, geom, aux, camera, cfg: RenderConfig):
+    """The spp sweep's kept tiles and probe drops, ``(None, 0)`` without
+    ``static_tile_cap``."""
+    if cfg.static_tile_cap <= 0.0:
+        return None, torch.zeros((), dtype=torch.int32,
+                                 device=camera.pos.device)
+    return _static_tile_lanes(make_cast(scene, geom, cfg, aux=aux), camera,
+                              cfg)
+
+
+def render_frame_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """Like ``render_frame``, also returning ``{"dropped": i32}``: the
+    children and primary hits that a queue or tile cap deleted, over every
+    sample, the kept-tile probe's once a sample (0 unless a cap is too
+    small; raise it, or take ``auto_tile_caps``)."""
+    geom = expand_geometry(scene)
+    if cfg.spp > 1:
+        # the mean of spp jittered samples; spp = 1 renders the pixel
+        # corners, as the reference does
+        offs, shift = spp_jitter_grid(cfg.spp, cfg.width, cfg.height,
+                                      camera.pos.device)
+        aux = prepare_cast(scene, geom, cfg)
+        lane, probe_drops = _spp_lane(scene, geom, aux, camera, cfg)
+        acc, drops = _scan_samples(scene, geom, aux, camera, cfg, offs,
+                                   shift, lane=lane)
+        return acc / cfg.spp, {"dropped": drops + cfg.spp * probe_drops}
+    img, dropped = _render_one_stats(scene, geom, make_cast(scene, geom, cfg),
+                                     camera, cfg, None)
+    return img, {"dropped": dropped}
 
 
 def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig):
-    """Render one RGBA float frame [H, W, 4] (clamped to <= 1) on the
-    scene's device."""
+    """Render one RGBA float frame [H, W, 4] (each sample clamped to <= 1)
+    on the scene's device."""
     img, _ = render_frame_with_stats(scene, camera, cfg)
     return img
+
+
+def render_frame_sum(scene: Scene, camera: Camera, cfg: RenderConfig, offs,
+                     remat: bool = True, with_stats: bool = False):
+    """The SUM of the sample frames at the offsets ``offs [k, 2]``
+    (``engine.render_frame_sum``), the building block of
+    ``diff.make_spp_grad_fn``'s chunks: over chunks of
+    ``spp_jitter_grid(n, ...)``'s offsets these sums add up to ``n`` times
+    ``render_frame`` at ``spp=n``, since the shift does not depend on spp.
+    ``remat=False`` keeps every sample's intermediates (no checkpoint).
+    ``with_stats`` also returns ``{"dropped": i32}``, the probe's drops
+    counted once a sample."""
+    geom = expand_geometry(scene)
+    aux = prepare_cast(scene, geom, cfg)
+    _, shift = spp_jitter_grid(2, cfg.width, cfg.height, camera.pos.device)
+    lane, probe_drops = _spp_lane(scene, geom, aux, camera, cfg)
+    acc, drops = _scan_samples(scene, geom, aux, camera, cfg, offs, shift,
+                               remat=remat, lane=lane)
+    if with_stats:
+        return acc, {"dropped": drops + offs.shape[0] * probe_drops}
+    return acc
 
 
 @torch.no_grad()
@@ -522,8 +668,8 @@ def auto_tile_caps(scene: Scene, camera: Camera, cfg: RenderConfig,
     * ``child_tile_cap``: the share of tiles with a reflective or
       refractive hit times ``margin``, 0 when the wavefront cap is on (its
       queue already holds only kept tiles) or at 85% or more;
-    * ``static_tile_cap``: the dilated share times 1.1, for the spp sweep
-      (not ported: ROADMAP.md Queue 1 item 6).
+    * ``static_tile_cap``: the dilated share times 1.1, the kept tiles of
+      the spp sweep (:func:`_static_tile_lanes`).
 
     A cap is at least one tile.  Drops that remain are counted by
     ``render_frame_with_stats``."""
@@ -545,6 +691,32 @@ def auto_tile_caps(scene: Scene, camera: Camera, cfg: RenderConfig,
     child = 0.0 if wf > 0.0 else cap(float(n_spawn) / T * margin)
     return {"wavefront_tile_cap": wf, "child_tile_cap": child,
             "static_tile_cap": cap(float(n_dil) / T * 1.1)}
+
+
+def auto_static_tile_cap(scene: Scene, camera: Camera,
+                         cfg: RenderConfig) -> float:
+    """``auto_tile_caps``' ``static_tile_cap`` alone (the JAX package's
+    ``margin`` argument, which it ignores, is left out)."""
+    return auto_tile_caps(scene, camera, cfg)["static_tile_cap"]
+
+
+@torch.no_grad()
+def _static_tile_lanes(cast_fn: CastFn, camera: Camera, cfg: RenderConfig):
+    """The kept tiles of the spp sweep from one probe of the pixel-centre
+    frame: ``Ct = ceil(T * static_tile_cap)`` tiles (at least 1, at most
+    ``T``), tiles with a probe hit first, then their one-ring dilation
+    (sub-pixel jitter moves a silhouette far less than a 32-pixel tile),
+    by a stable argsort of ``-(2 occ + dil)``.  Returns ``(keep_t [Ct]
+    sorted, dropped)``: the probe's hits outside the kept tiles."""
+    occ, dil, hits, _ = _probe_tile_occupancy(cast_fn, camera, cfg)
+    T = occ.shape[0]
+    Ct = min(max(1, int(-(-T * cfg.static_tile_cap // 1))), T)
+    prio = occ.to(torch.int32) * 2 + dil.to(torch.int32)
+    keep_t = torch.sort(torch.argsort(-prio, stable=True)[:Ct]).values
+    kept = torch.zeros(T, dtype=torch.bool, device=occ.device)
+    kept[keep_t] = True
+    dropped = hits.sum() - torch.where(kept, hits, 0).sum()
+    return keep_t, dropped.to(torch.int32)
 
 
 def frame_to_u8(img: torch.Tensor) -> torch.Tensor:

@@ -126,8 +126,9 @@ def camera_rays(cam: Camera, width: int, height: int, jitter=None):
     """Primary rays through every pixel corner (x right, y down).  Returns
     ``(origins [H,W,3], dirs [H,W,3])`` with unit dirs.  ``jitter`` (an
     optional ``[H,W,2]`` in [0, 1)) moves each ray inside its pixel, in the
-    JAX package's operation order (``auto_tile_caps`` probes the pixel
-    centres with it; the spp sample pattern is not ported)."""
+    JAX package's operation order (the spp samples' jitter,
+    ``engine.spp_jitter_grid``; ``auto_tile_caps`` probes the pixel
+    centres with it)."""
     dev = cam.pos.device
     m = rm.quat_to_mat(cam.rot)
     r = rm.normalize(m[:, 0])

@@ -1,6 +1,7 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-On first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+On first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process a source, all started together, and links the objects into one
 shared library with a plain C interface, ``_build/librt_kernels_<hash>.so``
 (the hash covers the sources and the flags, so an edit rebuilds), which is
 then loaded with ctypes.  Nothing here runs at import time: the CPU tests
@@ -30,7 +31,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel, printed to stderr
 ]
 
@@ -66,14 +67,28 @@ def build() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+    nvcc = find_nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = [proc.communicate()[1] for _, _, proc in jobs]  # wait for all
+    for (cmd, _, proc), err in zip(jobs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+    tmp = path.with_name(f"{tag}.tmp.so")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink()
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
     os.replace(tmp, path)  # atomic: concurrent builders race harmlessly
-    return path, res.stderr
+    return path, "".join(logs) + res.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,11 +18,19 @@ Where the JAX package takes ``jnp.maximum``/``jnp.minimum`` against a
 constant, this module takes ``torch.maximum``/``torch.minimum`` against a
 tensor, never ``torch.clamp``: the values are equal, but at a tie clamp
 passes the whole gradient where JAX passes half.
+
+Every opaque shadow mask goes through :func:`shadow_masks`, the port's
+counterpart of the JAX package's ``checkpoint_name(..., "shadow_occl")``:
+inside a per-sample checkpoint (``engine._scan_samples``) the forward
+records the masks on a :class:`MaskTape`, bit-packed, and the backward's
+recompute replays them, so that it runs no any-hit query.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -30,6 +38,80 @@ from .. import raymath as rm
 from ..scene import Materials, RenderConfig, Scene
 from .cast import CastFn, Hit, hit_shading_attrs
 from .geometry import WorldGeometry
+
+
+class MaskTape:
+    """The shadow masks of one sample, in query order, 8 to a byte (1 bit a
+    ray and query: the per-sample checkpoint keeps these across the whole
+    forward, so they grow with spp)."""
+
+    def __init__(self):
+        self.packed: list = []
+        self.pos = 0
+
+    def record(self, masks: Tuple[torch.Tensor, ...]) -> None:
+        self.packed.append(tuple(_pack_bits(m) for m in masks))
+
+    def replay(self) -> Tuple[torch.Tensor, ...]:
+        masks = tuple(_unpack_bits(*p) for p in self.packed[self.pos])
+        self.pos += 1
+        return masks
+
+
+def _bit_weights(device) -> torch.Tensor:
+    return torch.arange(8, dtype=torch.uint8, device=device)
+
+
+def _pack_bits(m: torch.Tensor):
+    flat = m.reshape(-1).to(torch.uint8)
+    flat = torch.nn.functional.pad(flat, (0, -flat.shape[0] % 8))
+    bits = (flat.view(-1, 8) << _bit_weights(m.device)).sum(
+        -1, dtype=torch.uint8)
+    return bits, m.shape
+
+
+def _unpack_bits(bits: torch.Tensor, shape) -> torch.Tensor:
+    n = shape.numel()
+    flat = (bits[:, None] >> _bit_weights(bits.device)) & 1
+    return flat.reshape(-1)[:n].to(torch.bool).reshape(shape)
+
+
+# (mode, tape) while a per-sample checkpoint records or replays, else None
+_TAPE: Optional[Tuple[str, MaskTape]] = None
+
+
+@contextlib.contextmanager
+def _tape_mode(mode: str, tape: MaskTape):
+    global _TAPE
+    saved, _TAPE = _TAPE, (mode, tape)
+    tape.pos = 0
+    try:
+        yield
+    finally:
+        _TAPE = saved
+
+
+def mask_tape_contexts():
+    """``(forward, recompute)`` context managers over one fresh
+    :class:`MaskTape`: the ``context_fn`` of a per-sample
+    ``torch.utils.checkpoint``."""
+    tape = MaskTape()
+    return _tape_mode("record", tape), _tape_mode("replay", tape)
+
+
+def shadow_masks(query: Callable[[], Tuple[torch.Tensor, ...]]
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The bool masks of ``query()`` (the any-hit queries of a shading
+    round), run under ``no_grad`` so that it adds nothing to the graph; a
+    checkpoint's recompute takes them from the tape instead of running it
+    (the JAX package saves them by name, ``"shadow_occl"``)."""
+    if _TAPE is not None and _TAPE[0] == "replay":
+        return _TAPE[1].replay()
+    with torch.no_grad():
+        masks = query()
+    if _TAPE is not None:
+        _TAPE[1].record(masks)
+    return masks
 
 
 def _relu(x):
@@ -143,15 +225,18 @@ def march_shadow(cast_fn: CastFn, origin, dir_unit, max_t, light_col,
     max_t``, the closest hit being minimal).  Inactive lanes park at 1e30
     like the fused round's."""
     dir_unit = dir_unit.expand(origin.shape)
-    origin = torch.where(active[..., None], origin, 1e30)
-    o = origin + rm.THRESHOLD * dir_unit
-    occ = getattr(cast_fn, "occlude", None)
-    if occ is not None:
-        blocked = active & occ(o, dir_unit, max_t)
-    else:
+
+    def query():
+        o = (torch.where(active[..., None], origin, 1e30)
+             + rm.THRESHOLD * dir_unit)
+        occ = getattr(cast_fn, "occlude", None)
+        if occ is not None:
+            return (active & occ(o, dir_unit, max_t),)
         hit = cast_fn(o, dir_unit)
         t_fin = torch.where(hit.valid, hit.t, 1.0)
-        blocked = active & hit.valid & (t_fin <= max_t)
+        return (active & hit.valid & (t_fin <= max_t),)
+
+    (blocked,) = shadow_masks(query)
     lit = light_col.expand(origin.shape[:-1] + (4,))
     return torch.where(blocked[..., None], 0.0, lit)
 
@@ -225,9 +310,9 @@ def illuminate(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
 
     if _use_fused(scene, cfg, cast_fn):
         o1, dir1, dist, o2, dir2 = shadow_rays(scene, hit_pos, active)
-        b1, b2 = cast_fn.occlude2(o1, dir1, dist, o2, dir2, float("inf"))
-        b1 = active & b1
-        b2 = active & b2
+        b1, b2 = shadow_masks(lambda: tuple(
+            active & b for b in cast_fn.occlude2(o1, dir1, dist, o2, dir2,
+                                                 float("inf"))))
         dir_to_light2 = -lights.dir_dir[0]  # raw: Phong takes it unnormalized
         datten = distance_attenuation(scene, dist)
         zero = hit_pos.new_zeros(())

@@ -136,9 +136,12 @@ def test_auto_tile_caps_match_jax(mixed, dense):
     img, dropped = _port_frame(mixed, **run)
     assert dropped == 0
     np.testing.assert_allclose(img.numpy(), dense.numpy(), rtol=0, atol=1e-6)
-    # the spp sweep's kept tiles are not ported
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _port_frame(mixed, static_tile_cap=0.5)
+    # the spp sweep's kept tiles: at spp = 1 they play no part, as in the
+    # JAX package (tests/test_torch_spp.py renders them at spp = 4)
+    img, dropped = _port_frame(mixed, static_tile_cap=0.5)
+    jimg, jdropped = _jax_frame(mixed, static_tile_cap=0.5)
+    assert dropped == jdropped == 0 and torch.equal(img, dense)
+    assert_frame_matches_jax(img, jimg)
 
 
 def test_mixed_grads_match_jax(mixed):

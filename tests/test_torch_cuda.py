@@ -994,3 +994,76 @@ def test_synth_frames_cuda_match_torch_engine(case):
     if case == "big_walk":  # forced onto the cull: the walk's frame
         forced = render_frame(scene, cam, cfg.replace(pallas_traversal="cull"))
         assert float((forced - img).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# spp > 1: jittered samples, the kept tiles, the checkpointed step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["walk", "walk_static", "cull",
+                                  "cull_static", "mxu"])
+def test_spp_frame_cuda_matches_torch_engine(gpu_world, gpu_world6, case):
+    """spp 4 at 160x120 through the kernels: the ``"torch"`` engine's frame,
+    nothing dropped, each kernel launched once a sample (the probe of the
+    kept tiles once more): terrain8 on the walk, terrain6 on the cull and
+    the MXU cast, and with ``auto_tile_caps``' kept tiles (terrain6's,
+    also forced onto the walk: terrain8's frame at this size keeps every
+    tile)."""
+    from raytracer_tpu_torch.render import engine
+
+    g = gpu_world if case == "walk" else gpu_world6
+    s, cam = g["scene"], g["cam"]
+    cfg = g["cfg"].replace(spp=4, pallas_kernel="mxu" if case == "mxu"
+                           else "scalar")
+    if case == "walk_static":
+        cfg = cfg.replace(pallas_traversal="bvh")
+    if case.endswith("static"):
+        cfg = cfg.replace(static_tile_cap=engine.auto_tile_caps(
+            s, cam, cfg)["static_tile_cap"])
+        assert 0.0 < cfg.static_tile_cap < 1.0
+    cast = {"walk": ce.bvh_cast, "cull": cull.cull_cast,
+            "mxu": mxu.mxu_cast}[case.split("_")[0]]
+    n = cast.launches
+    img, stats = engine.render_frame_with_stats(s, cam, cfg)
+    torch.cuda.synchronize()
+    per_sample = 3 if case == "mxu" else 1  # K6 casts the shadows too
+    assert cast.launches - n == 4 * per_sample + case.endswith("static")
+    assert int(stats["dropped"]) == 0
+    ref = render_frame(s, cam, cfg.replace(engine="torch"))
+    torch.testing.assert_close(img, ref, rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [None, 2])
+def test_spp_grads_cuda_match_torch_engine(gpu_world, chunk):
+    """``make_spp_grad_fn`` at spp 4 through the kernels: the ``"torch"``
+    engine's loss and grads; the backward launches no any-hit query."""
+    s, cam, cfg = gpu_world["scene"], gpu_world["cam"], gpu_world["cfg"]
+    cfg = cfg.replace(early_exit=False)
+    target = torch.zeros(cfg.height, cfg.width, 4, device=cam.pos.device)
+    out = {}
+    for engine in ("cuda", "torch"):
+        params = diff.trainable_params(s, cam)
+        out[engine] = diff.make_spp_grad_fn(
+            s, cam, cfg.replace(engine=engine), 4, spp_chunk=chunk)(params,
+                                                                    target)
+    loss_c, g_c = out["cuda"]
+    loss_t, g_t = out["torch"]
+    assert float(loss_c) == pytest.approx(float(loss_t), rel=1e-6)
+    assert float(g_c["cam_pos"].abs().max()) > 0.0
+    for a, b in zip(tree.leaves(g_c), tree.leaves(g_t)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_spp_backward_launches_no_any_hit_query(gpu_world):
+    s, cam, cfg = gpu_world["scene"], gpu_world["cam"], gpu_world["cfg"]
+    cfg = cfg.replace(early_exit=False, spp=4)
+    params = diff.trainable_params(s, cam)
+    loss = diff.make_loss_fn(s, cam, cfg, torch.zeros(
+        cfg.height, cfg.width, 4, device=cam.pos.device))(params)
+    torch.cuda.synchronize()
+    n1, n2 = ce.bvh_cast.launches, ce.bvh_occlude2.launches
+    diff.grad_of(loss, params)
+    torch.cuda.synchronize()
+    assert ce.bvh_occlude2.launches == n2
+    assert ce.bvh_cast.launches == n1 + 4  # every sample's cast again

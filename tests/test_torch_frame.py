@@ -145,14 +145,25 @@ def _material_world(tmp_path, change):
     "texture", "reflective", "refractive", "vertex grads"])
 def test_unported_settings_raise(frames, tmp_path, change):
     """Settings the port does not cover raise, naming the ROADMAP item:
-    spp > 1 and ``static_tile_cap`` (item 6), texture mapping (item 9).
-    The rest are ported and render: the cull and the MXU kernel give
-    terrain8's frame (equal to the LBVH walk's); so do edge-aware
-    gradients, on every cast (the frame unchanged), and vertex parameters
-    train.  A reflective world (the pixel-aligned bounce stream), a
-    refractive one (the aligned stream with the transmissive shadow march)
-    and a wavefront tile cap give the JAX package's frame at 64x48."""
+    texture mapping (item 9).  The rest are ported and render: the cull
+    and the MXU kernel give terrain8's frame (equal to the LBVH walk's); so
+    do edge-aware gradients, on every cast (the frame unchanged), and
+    vertex parameters train.  A reflective world (the pixel-aligned bounce
+    stream), a refractive one (the aligned stream with the transmissive
+    shadow march), a wavefront tile cap and spp = 4 give the JAX package's
+    frame at 64x48; ``static_tile_cap`` at spp = 1 leaves the frame as it
+    is, as in the JAX package."""
     scene, cam, cfg = frames["scene"], frames["cam"], frames["cfg"]
+    if change == "spp":
+        f = _frames(WORLD, spp=4)
+        img, stats = engine.render_frame_with_stats(
+            f["scene"], f["cam"], f["cfg"].replace(engine="cuda"))
+        np.testing.assert_allclose(img.numpy(), f["jimg"], rtol=0, atol=1e-5)
+        assert int(stats["dropped"]) == 0
+        assert not np.allclose(f["jimg"], frames["jimg"], atol=1e-3)
+        assert torch.equal(render_frame(scene, cam, cfg.replace(
+            static_tile_cap=0.5)), render_frame(scene, cam, cfg))
+        return
     if change in ("tile_cap", "reflective", "refractive"):
         if change == "tile_cap":
             f = _frames(WORLD, wavefront_tile_cap=0.5)
@@ -184,8 +195,6 @@ def test_unported_settings_raise(frames, tmp_path, change):
         assert torch.equal(render_frame(
             scene, cam, ported.replace(edge_aware_grads=True)), img)
         return
-    elif change == "spp":
-        cfg = cfg.replace(spp=4)
     elif change == "texture":
         cfg = cfg.replace(texture_mapping=True)
     elif change == "vertex grads":
@@ -198,11 +207,6 @@ def test_unported_settings_raise(frames, tmp_path, change):
     if change == "texture":  # on the MXU cast too, whose tables ignore it
         with pytest.raises(NotImplementedError, match="item 9"):
             render_frame(scene, cam, cfg.replace(pallas_kernel="mxu"))
-    if change == "spp":  # and the spp sweep's kept tiles
-        with pytest.raises(NotImplementedError, match="item 6"):
-            render_frame(scene, cam, cfg)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            render_frame(scene, cam, cfg.replace(spp=1, static_tile_cap=0.5))
 
 
 def test_cli_writes_png_on_cpu(tmp_path, capsys):

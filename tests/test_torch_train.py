@@ -342,13 +342,29 @@ def test_cli_trains_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["elastic", "profile_dir", "spp_grad",
                                   "profile_trace"])
-def test_unported_training_surface_raises(what):
+def test_unported_training_surface_raises(small, what):
+    """The elastic supervisor and device traces raise, naming the ROADMAP
+    item; the spp step is ported: one whole step at spp 2 gives
+    ``make_loss_fn``'s loss and gradients at ``spp=2`` bit for bit (the
+    same samples summed in the same order)."""
+    if what == "spp_grad":
+        scene, cam, cfg = small
+        params = diff.trainable_params(scene, cam)
+        target = torch.zeros(cfg.height, cfg.width, 4)
+        loss, grads = diff.make_spp_grad_fn(scene, cam, cfg, 2)(params,
+                                                                target)
+        ref = diff.make_loss_fn(scene, cam, cfg.replace(spp=2),
+                                target)(params)
+        assert float(loss) == float(ref.detach()) > 0.0
+        for a, b in zip(tree.leaves(grads),
+                        tree.leaves(diff.grad_of(ref, params))):
+            assert torch.equal(a, b)
+        assert float(grads["cam_pos"].abs().max()) > 0.0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "elastic":
             cli.main(["-c", TERRAIN8, "--train", "1", "--elastic", "2"])
         elif what == "profile_dir":
             cli.main(["-c", TERRAIN8, "--profile-dir", "trace"])
-        elif what == "spp_grad":
-            diff.make_spp_grad_fn(None, None, None, 4)
         else:
             tracing.profile_trace()

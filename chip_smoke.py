@@ -140,7 +140,33 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    events; the minimum and both), Mrays/s = W*H*spp / ms / 1e3, dropped
    (must be 0), peak memory over what was allocated before the step
    (within 1.25x of the same step's at spp 8), and
-   the idle share and top kernels of one profiled step at spp 8.
+   the idle share and top kernels of one profiled step at spp 8;
+27-30. the distribution layer (raytracer_tpu_torch/dist.py), its ranks
+   launched by dist.launch as processes that share the one card over gloo
+   (NCCL takes one rank a card; a one-rank NCCL group runs its all_reduce
+   and all_gather on the card first).  Each rank sets every launch counter
+   to 0 just before each path and reads it just after; the parent holds
+   what the ranks return against its own single-process results:
+27. row sharding on 2 ranks: terrain8 1920x1080, contiguous and cyclic
+   bands (bit for bit the single-process frame) and spp 4 (1e-5); K1 and
+   K2 identical to their plain versions on rank 1's rows;
+28. geometry sharding: on a 1x2 mesh at 1920x1080, terrain8 (191-instance
+   shards: K4/K5) and terrain8_stress (286-instance shards behind the
+   parked pad instance: K1/K3, no K2: the merged cast has no occlude2),
+   on a 2x2 mesh terrain8 at 640x480 (4 ranks), each frame within 1e-5 of
+   the single-process frame; the ring cast's hits at 640x480 equal to the
+   full cast's; K4/K5 and K1/K3 identical to their plain versions on
+   shard 0's rays;
+29. the geometry-sharded step (vertices, edge-aware grads) on 1x2 at
+   640x480: loss and grads equal to the single-process step at rtol 1e-4
+   / atol 1e-6 (verts 1e-6 max|g|); K4's exact_uv instantiation identical
+   to its plain version on shard 0's rays;
+30. dryrun_multichip(2) at 1920x1080 (spp 2, checkpointed samples,
+   vertices and camera): its loss and grads equal to the single-process
+   step at phase 29's tolerances; K1 exact_uv and K2 identical to their
+   plain versions on rank 1's rows of sample 0.
+   Per phase: seconds, per-rank ms (CUDA events in each rank) and the
+   single process's ms from the same call.
 
 Beside each kernel's ms per launch (CUDA events around the wrapper: the
 ctypes call and the output allocation included) the device time alone is
@@ -163,7 +189,9 @@ once (no staged copy of the columns: no implementation needs one).
 
 The line before the last is a JSON object describing each kernel (K1's
 exact_uv and visits instantiations and K4's exact_uv one as rows of their
-own; ``spp_launches``: its launches in each phase-26 cell); the last line is
+own; ``spp_launches``: its launches in each phase-26 cell;
+``dist_launches``: its launches over the ranks in each phase 27-30 path);
+the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -224,6 +252,9 @@ SPP_REF = 8  # the spp of the memory comparison and the profiled step
 # the JAX package's heavy-spp shapes (bench.py _item_world8_1024_spp16,
 # _item_world8_stress_1080p_spp128, _item_world8_stress_geomgrad) on the
 # port's worlds of the same shapes: label, world, size, spp, kind
+DIST_BIG, DIST_SMALL = (1920, 1080), (640, 480)  # phases 27-30
+DIST_SPP = 4
+DIST_TIMEOUT = 480.0  # seconds a launch of ranks may take
 SPP_CELLS = [
     ("terrain8 1024x1024 spp 16 frame", WORLD, (1024, 1024), 16, "frame"),
     ("terrain8_stress 1920x1080 spp 128 fwd+bwd", WORLD_STRESS,
@@ -843,7 +874,7 @@ def _geomgrad(dev, smi, rays_random):
     from raytracer_tpu_torch.diff import (grad_of, make_loss_fn,
                                           trainable_params)
     from raytracer_tpu_torch.render import cuda_engine as ce
-    from raytracer_tpu_torch.render import cull, mxu
+    from raytracer_tpu_torch.render import cull
     from raytracer_tpu_torch.render.engine import (_frame_rays_blocked,
                                                    render_frame)
     from raytracer_tpu_torch.render.geometry import expand_geometry
@@ -1047,14 +1078,7 @@ def _geomgrad(dev, smi, rays_random):
     need = {"terrain8": (("bvh_cast_exact_uv", 1), ("bvh_occlude2", 1)),
             "terrain6": (("cull_cast_exact_uv", 1), ("cull_occlude", 2)),
             "terrain6_mxu": (("mxu_cast", 3),)}
-    counters = {"bvh_cast_exact_uv": (ce.bvh_cast, "exact_uv_launches"),
-                "cull_cast_exact_uv": (cull.cull_cast, "exact_uv_launches"),
-                "bvh_cast": (ce.bvh_cast, "launches"),
-                "bvh_occlude2": (ce.bvh_occlude2, "launches"),
-                "bvh_occlude": (ce.bvh_occlude, "launches"),
-                "cull_cast": (cull.cull_cast, "launches"),
-                "cull_occlude": (cull.cull_occlude, "launches"),
-                "mxu_cast": (mxu.mxu_cast, "launches")}
+    counters = _launch_counters()
     target = torch.zeros(big[1], big[0], 4, device=dev)
     rays_big = big[0] * big[1]
     for cname, (w, cfg) in cases.items():
@@ -1898,6 +1922,520 @@ def _spp(dev, smi):
     return out
 
 
+# ---- phases 27-30: the distribution layer (raytracer_tpu_torch/dist.py) ----
+# The ranks are processes that share the one card over gloo (NCCL takes one
+# rank a card); their functions below run in each rank, launched by
+# dist.launch, and the parent compares what they return with its own
+# single-process results.
+
+def _launch_counters():
+    """Every launch counter of the kernels line: ``{name: (fn, attr)}``."""
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render import cull, mxu
+
+    return {"bvh_cast": (ce.bvh_cast, "launches"),
+            "bvh_occlude2": (ce.bvh_occlude2, "launches"),
+            "bvh_occlude": (ce.bvh_occlude, "launches"),
+            "cull_cast": (cull.cull_cast, "launches"),
+            "cull_occlude": (cull.cull_occlude, "launches"),
+            "mxu_cast": (mxu.mxu_cast, "launches"),
+            "bvh_cast_exact_uv": (ce.bvh_cast, "exact_uv_launches"),
+            "cull_cast_exact_uv": (cull.cull_cast, "exact_uv_launches"),
+            "bvh_visit_counts": (ce.bvh_visit_counts, "launches")}
+
+
+def _dist_world(path, size, dev, **change):
+    """``(scene, camera, cfg)`` of a world at ``size`` (the full field of
+    view), ``engine="cuda"``."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.builder import scale_camera
+
+    w = rtt.generate(path)
+    return (rtt.to_device(w.scene, dev),
+            rtt.to_device(scale_camera(w.camera, size[0], w.config.width),
+                          dev),
+            w.config.replace(width=size[0], height=size[1], engine="cuda",
+                             **change))
+
+
+def _digest(x):
+    import hashlib
+
+    return hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _rank_run(label, run, rec, reps=3):
+    """In a rank: ``run()`` once with every launch counter set to 0 just
+    before and read just after, then its ms (median of ``reps``, CUDA
+    events) and its wall seconds the first time into ``rec[label]``."""
+    counters = _launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    rec[label] = {"launches": counts, "first_s": first_s,
+                  "ms": _ms(run, reps=reps, warmup=False)}
+    return res
+
+
+def _rank_dist2(device):
+    """Phases 27-30 in one of 2 ranks on the card: terrain8's row-sharded
+    1080p frames (contiguous, cyclic, spp 4); on the 1x2 mesh the
+    geometry-sharded 1080p frames of terrain8 (cull shards) and
+    terrain8_stress (walk shards), the ring cast at 640x480 and the
+    geometry-sharded step with vertices; then dryrun_multichip(2) at
+    1080p."""
+    from raytracer_tpu_torch import dist
+    from raytracer_tpu_torch.diff import trainable_params
+    from raytracer_tpu_torch.render.geometry import camera_rays
+
+    rank = torch.distributed.get_rank()
+    out = {}
+
+    def keep(rec, label, x):  # rank 0 returns x, every rank its digest
+        rec[label]["digest"] = _digest(x)
+        if rank == 0:
+            rec[label]["value"] = x.detach().cpu()
+
+    # ---- phase 27: row sharding ----
+    t0, rec = time.perf_counter(), {}
+    scene, cam, cfg = _dist_world(WORLD, DIST_BIG, device)
+    mesh = dist.make_mesh()
+    for label, c, balance in (
+            ("contiguous", cfg, "contiguous"), ("cyclic", cfg, "cyclic"),
+            (f"spp{DIST_SPP}", cfg.replace(spp=DIST_SPP), "contiguous")):
+        run = dist.make_sharded_render(scene, cam, c, mesh, balance)
+        keep(rec, label, _rank_run(label, run, rec))
+    rec["seconds"] = time.perf_counter() - t0
+    out["27"] = rec
+
+    # ---- phase 28: geometry sharding on the 1x2 mesh ----
+    t0, rec = time.perf_counter(), {}
+    mesh2 = dist.make_mesh2d(1, 2)
+    for label, path in (("terrain8", WORLD), ("terrain8_stress",
+                                              WORLD_STRESS)):
+        scene, cam, cfg = _dist_world(path, DIST_BIG, device)
+        run = dist.make_geom_sharded_render(scene, cam, cfg, mesh2)
+        keep(rec, label, _rank_run(label, run, rec))
+    scene, cam, cfg = _dist_world(WORLD, DIST_SMALL, device)
+    shard = dist.take_shard(dist.split_scene_by_instances(scene, 2),
+                            mesh2.index(dist.GEOM_AXIS), device)
+    ro, rd = camera_rays(cam, *DIST_SMALL)
+    ring = dist.make_ring_geom_cast(scene, cfg, shard, mesh2)
+    hit = _rank_run("ring", lambda: ring(ro.reshape(-1, 3),
+                                         rd.reshape(-1, 3)), rec)
+    keep(rec, "ring", torch.cat([hit.t[:, None], hit.normal,
+                                 hit.valid[:, None].float(),
+                                 hit.mat[:, None].float()], 1))
+    rec["seconds"] = time.perf_counter() - t0
+    out["28"] = rec
+
+    # ---- phase 29: the geometry-sharded step ----
+    t0, rec = time.perf_counter(), {}
+    scene, cam, cfg = _dist_world(WORLD, DIST_SMALL, device,
+                                  early_exit=False, edge_aware_grads=True)
+    step = dist.make_geom_sharded_grad_fn(scene, cam, cfg, mesh2)
+    target = torch.zeros(DIST_SMALL[1], DIST_SMALL[0], 4, device=device)
+    loss, grads = _rank_run("step", lambda: step(trainable_params(
+        scene, cam, include_vertices=True), target), rec)
+    rec["step"].update(loss=float(loss), grads=dist.flat_tree(grads))
+    rec["seconds"] = time.perf_counter() - t0
+    rec["staged"] = sorted(mesh.staged | mesh2.staged)
+    out["29"] = rec
+
+    # ---- phase 30: dryrun_multichip(2) at 1080p ----
+    t0, rec = time.perf_counter(), {}
+    loss, grads, _ = _rank_run(
+        "dryrun", lambda: dist.dryrun_multichip(2, *DIST_BIG, device), rec,
+        reps=2)
+    rec["dryrun"].update(loss=float(loss), grads=dist.flat_tree(grads))
+    rec["seconds"] = time.perf_counter() - t0
+    out["30"] = rec
+    return out
+
+
+def _rank_dist4(device):
+    """Phase 28 in one of 4 ranks on the card: terrain8's geometry-sharded
+    640x480 frame on the 2x2 mesh."""
+    from raytracer_tpu_torch import dist
+
+    t0, rec = time.perf_counter(), {}
+    scene, cam, cfg = _dist_world(WORLD, DIST_SMALL, device)
+    run = dist.make_geom_sharded_render(scene, cam, cfg,
+                                        dist.make_mesh2d(2, 2))
+    frame = _rank_run("terrain8 2x2", run, rec)
+    rec["terrain8 2x2"]["digest"] = _digest(frame)
+    if torch.distributed.get_rank() == 0:
+        rec["terrain8 2x2"]["value"] = frame.cpu()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _same_as_plain(label, scene, cfg, o, d, fused):
+    """The cast of ``scene`` under ``cfg`` through the kernels and through
+    their plain versions on the rays ``(o, d)`` (launches here are
+    comparisons, not the main path's): every hit output identical; then the
+    two lights' shadow queries of those hits, through ``occlude2`` (K2)
+    where ``fused``, else ``occlude`` per light, identical masks."""
+    from raytracer_tpu_torch.render.engine import make_cast
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+    from raytracer_tpu_torch.render.shading import shadow_rays
+
+    geom = expand_geometry(scene)
+    ck = make_cast(scene, geom, cfg.replace(engine="cuda"))
+    cp = make_cast(scene, geom, cfg.replace(engine="torch"))
+    with torch.no_grad():
+        hk = ck(o, d)
+        _compare_hits(label, hk, cp(o, d))
+        t = torch.where(hk.valid, hk.t, 1.0)
+        o1, d1, dist1, o2, d2 = shadow_rays(scene, o + t[:, None] * d,
+                                            hk.valid)
+        q = (o1, d1, dist1, o2, d2.contiguous(),
+             torch.full_like(dist1, float("inf")))
+        if fused:
+            bk, bp = ck.occlude2(*q), cp.occlude2(*q)
+        else:
+            bk = (ck.occlude(*q[:3]), ck.occlude(*q[3:]))
+            bp = (cp.occlude(*q[:3]), cp.occlude(*q[3:]))
+        torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(bk, bp)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: shadow query {k} differs on "
+                                 f"{int((a != b).sum())} rays")
+    blocked = [int((b & hk.valid).sum()) for b in bk]
+    print(f"{label}: {int(hk.valid.sum())} hits of {o.shape[0]} rays, "
+          f"blocked among them {blocked}: every output identical to plain "
+          f"({'occlude2' if fused else 'occlude per light'})")
+
+
+def _round_rays(scene, cam, cfg, dist):
+    """The rays of each round of the geometry-sharded frame, in its row
+    order: the merged cast gives the whole scene's hits, so the rounds
+    (``radiance``'s ``on_round``) of the whole scene's cast are the ones
+    every shard casts; inactive rays parked at 1e30."""
+    from raytracer_tpu_torch.render.engine import make_cast, radiance
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+
+    geom = expand_geometry(scene)
+    ro, rd = dist._padded_rays(cam, cfg, cfg.height)
+    waves = []
+    with torch.no_grad():
+        radiance(scene, geom, make_cast(scene, geom, cfg), cfg,
+                 ro.reshape(-1, 3), rd.reshape(-1, 3),
+                 on_round=lambda r, st: waves.append(st))
+    return [(torch.where(w.active[:, None], w.o, 1e30).contiguous(),
+             w.d.contiguous()) for w in waves]
+
+
+def _nccl_one_rank(dev):
+    """A one-rank NCCL group: it initializes, and its all_reduce and
+    all_gather run on the card."""
+    import torch.distributed as tdist
+    from raytracer_tpu_torch import dist
+
+    dist.initialize_distributed(f"tcp://127.0.0.1:{dist.free_port()}", 1, 0,
+                                "nccl", device="cuda")
+    try:
+        x = torch.arange(16.0, device=dev)
+        y = x.clone()
+        tdist.all_reduce(y)
+        out = [torch.empty_like(x)]
+        tdist.all_gather(out, x)
+        torch.cuda.synchronize()
+        backend = tdist.get_backend()
+    finally:
+        tdist.destroy_process_group()
+    if not (backend == "nccl" and torch.equal(y, x) and torch.equal(out[0], x)
+            and y.is_cuda and out[0].is_cuda):
+        raise AssertionError("the one-rank NCCL group's collectives")
+    print(f"NCCL one-rank group: backend {backend}, all_reduce and "
+          f"all_gather on {y.device}: ok")
+    return {"backend": backend}
+
+
+def _dist_grads(label, got, want, loss, want_loss):
+    """Sharded grads (flat, CPU) against the single process's at rtol 1e-4
+    / atol 1e-6 (``verts``: 1e-6 max|g|).  Returns the max abs diff."""
+    from raytracer_tpu_torch import dist
+
+    want = dist.flat_tree(want)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: leaves {sorted(got)}")
+    if not math.isclose(loss, want_loss, rel_tol=RTOL_GRAD):
+        raise AssertionError(f"{label}: loss {loss} / single {want_loss}")
+    worst = 0.0
+    for key, g in got.items():
+        ref = want[key]
+        atol = ATOL_GRAD if key != VERTS else 1e-6 * float(ref.abs().max())
+        if not (torch.isfinite(g).all() and torch.allclose(
+                g, ref, rtol=RTOL_GRAD, atol=atol)):
+            raise AssertionError(f"{label}: {key} max abs diff "
+                                 f"{float((g - ref).abs().max())}")
+        worst = max(worst, float((g - ref).abs().max()))
+    for key in ("['cam_pos']", VERTS):
+        if key in got and float(got[key].abs().max()) == 0.0:
+            raise AssertionError(f"{label}: {key} grads are zero")
+    return worst
+
+
+def _dist(dev, smi):
+    """Phases 27-30: the distribution layer, its ranks sharing the one card
+    over gloo (NCCL takes one rank a card: a one-rank NCCL group shows the
+    backend).  Returns the numbers for the report."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import dist
+    from raytracer_tpu_torch.diff import (grad_of, make_loss_fn,
+                                          trainable_params)
+    from raytracer_tpu_torch.render.engine import render_frame
+
+    out = {"nccl": _nccl_one_rank(dev)}
+    t0 = time.perf_counter()
+    r2 = [r["result"] for r in dist.launch(
+        "chip_smoke:_rank_dist2", 2, backend="gloo", device="cuda",
+        timeout=DIST_TIMEOUT, pythonpath=[ROOT])]
+    out["launch2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r4 = [r["result"] for r in dist.launch(
+        "chip_smoke:_rank_dist4", 4, backend="gloo", device="cuda",
+        timeout=DIST_TIMEOUT, pythonpath=[ROOT])]
+    out["launch4_s"] = time.perf_counter() - t0
+    note = "ranks share one card"
+    print(f"dist launches [{smi}]: 2 ranks {out['launch2_s']:.1f} s, 4 ranks "
+          f"{out['launch4_s']:.1f} s (gloo, {note}); staged through the "
+          f"host by the port: {r2[0]['29']['staged'] or 'none'} (gloo's "
+          "CUDA all_gather and all_reduce copy through host memory inside "
+          "gloo)")
+    big, small = DIST_BIG, DIST_SMALL
+    bkey, skey = f"{big[0]}x{big[1]}", f"{small[0]}x{small[1]}"
+
+    def rank_rec(ranks, phase, label):
+        """Rank 0's record of ``label``; every rank's digest must agree."""
+        recs = [r[phase][label] if phase else r[label] for r in ranks]
+        if len({rec["digest"] for rec in recs}) != 1:
+            raise AssertionError(f"{label}: the ranks' results differ")
+        return recs[0], [rec["ms"] for rec in recs]
+
+    def launches_of(ranks, phase, label, used):
+        """The ranks' launch counts of ``label``, summed: in every rank each
+        counter of ``used`` moved, and no other."""
+        total = {}
+        for r in ranks:
+            counts = (r[phase] if phase else r)[label]["launches"]
+            for name, n in counts.items():
+                if (n > 0) != (name in used):
+                    raise AssertionError(
+                        f"{label}: {name} launched {n} times in a rank "
+                        f"(expected {'some' if name in used else 0})")
+                total[name] = total.get(name, 0) + n
+        return {k: v for k, v in total.items() if v}
+
+    def timed(fn, reps=3):
+        fn()
+        return _ms(fn, reps=reps, warmup=False)
+
+    dist_launches = {}
+
+    # ---- phase 27: row sharding ---------------------------------------------
+    t_p = time.perf_counter()
+    scene, cam, cfg = _dist_world(WORLD, big, dev)
+    single = {"contiguous": render_frame(scene, cam, cfg),
+              f"spp{DIST_SPP}": render_frame(scene, cam,
+                                             cfg.replace(spp=DIST_SPP))}
+    single["cyclic"] = single["contiguous"]
+    single_ms = {"frame": timed(lambda: render_frame(scene, cam, cfg)),
+                 "spp": timed(lambda: render_frame(
+                     scene, cam, cfg.replace(spp=DIST_SPP)))}
+    rec27 = {}
+    for label in ("contiguous", "cyclic", f"spp{DIST_SPP}"):
+        rec, ms = rank_rec(r2, "27", label)
+        img = rec["value"].to(dev)
+        diff = _frame_checks(f"row-sharded {label}", img, single[label], big)
+        if label != f"spp{DIST_SPP}" and not torch.equal(img, single[label]):
+            raise AssertionError(f"row-sharded {label}: not bit for bit")
+        counts = launches_of(r2, "27", label, ("bvh_cast", "bvh_occlude2"))
+        dist_launches[f"27 {label}"] = counts
+        s_ms = single_ms["spp" if label.startswith("spp") else "frame"]
+        rec27[label] = {"max_abs_diff": diff, "rank_ms": ms,
+                        "single_ms": s_ms, "launches": counts}
+        print(f"phase 27 terrain8 {bkey} {label} over 2 ranks [{smi}]: max "
+              f"abs diff {diff} from the single-process frame"
+              f"{' (bit for bit)' if diff == 0.0 else ''}; per-rank ms "
+              f"{[round(m, 3) for m in ms]} ({note}), single process "
+              f"{s_ms:.3f} ms; launches (both ranks) {counts}")
+    hp = dist.pad_to_multiple(big[1], 2 * dist.BAND)
+    ro, rd = dist._padded_rays(cam, cfg, hp)
+    rows = hp // 2
+    _same_as_plain(f"K1/K2 on rank 1's rows ({rows}x{big[0]}, the "
+                   "terrain's half)", scene, cfg, ro[rows:].reshape(-1, 3),
+                   rd[rows:].reshape(-1, 3), fused=True)
+    rec27["seconds"] = time.perf_counter() - t_p + r2[0]["27"]["seconds"]
+    out["27"] = rec27
+    print(f"phase 27: {rec27['seconds']:.1f} s (ranks "
+          f"{r2[0]['27']['seconds']:.1f} s)")
+    frame8_big = single["contiguous"]
+
+    # ---- phase 28: geometry sharding ----------------------------------------
+    t_p = time.perf_counter()
+    rec28 = {}
+    cases = {"terrain8": (WORLD, ("cull_cast", "cull_occlude")),
+             "terrain8_stress": (WORLD_STRESS, ("bvh_cast", "bvh_occlude"))}
+    for label, (path, used) in cases.items():
+        scene, cam, cfg = _dist_world(path, big, dev)
+        ref = frame8_big if label == "terrain8" else render_frame(scene, cam,
+                                                                  cfg)
+        s_ms = timed(lambda: render_frame(scene, cam, cfg))
+        rec, ms = rank_rec(r2, "28", label)
+        diff = _frame_checks(f"geometry-sharded {label}", rec["value"].to(
+            dev), ref, big)
+        counts = launches_of(r2, "28", label, used)
+        dist_launches[f"28 {label} 1x2"] = counts
+        rec28[label] = {"max_abs_diff": diff, "rank_ms": ms,
+                        "single_ms": s_ms, "launches": counts}
+        print(f"phase 28 {label} {bkey} on 1x2 [{smi}]: max abs diff {diff} "
+              f"from the single-process frame; per-rank ms "
+              f"{[round(m, 3) for m in ms]} ({note}), single process "
+              f"{s_ms:.3f} ms; launches (both ranks) {counts}")
+        shards = dist.split_scene_by_instances(scene, 2)
+        for i, (o, d) in enumerate(_round_rays(scene, cam, cfg, dist)):
+            for g in range(2):
+                local = dist._local_scene(scene, dist.take_shard(shards, g,
+                                                                 dev))
+                _same_as_plain(
+                    f"{'K4/K5' if label == 'terrain8' else 'K1/K3'} on "
+                    f"{label}'s shard {g} ({local.inst_pos.shape[0]} "
+                    f"instances), round {i}", local, cfg, o, d, fused=False)
+    scene, cam, cfg = _dist_world(WORLD, small, dev)
+    ref = render_frame(scene, cam, cfg)
+    rec, ms = rank_rec(r4, None, "terrain8 2x2")
+    diff = _frame_checks("geometry-sharded terrain8 2x2", rec["value"].to(
+        dev), ref, small)
+    counts = launches_of(r4, None, "terrain8 2x2",
+                         ("cull_cast", "cull_occlude"))
+    dist_launches["28 terrain8 2x2"] = counts
+    rec28["terrain8 2x2"] = {
+        "max_abs_diff": diff, "rank_ms": ms, "launches": counts,
+        "single_ms": timed(lambda: render_frame(scene, cam, cfg))}
+    print(f"phase 28 terrain8 {skey} on 2x2 [{smi}]: max abs diff {diff}; "
+          f"per-rank ms {[round(m, 3) for m in ms]} (4 ranks, {note}), "
+          f"single process {rec28['terrain8 2x2']['single_ms']:.3f} ms; "
+          f"launches (4 ranks) {counts}")
+    from raytracer_tpu_torch.render.engine import make_cast
+    from raytracer_tpu_torch.render.geometry import (camera_rays,
+                                                     expand_geometry)
+    ro, rd = camera_rays(cam, *small)
+    with torch.no_grad():
+        want = make_cast(scene, expand_geometry(scene), cfg)(
+            ro.reshape(-1, 3), rd.reshape(-1, 3))
+    rec, ms = rank_rec(r2, "28", "ring")
+    got = rec["value"].to(dev)
+    valid = got[:, 4] > 0.5
+    both = want.valid
+    if not (torch.equal(valid, both) and torch.equal(
+            got[:, 5][both].to(torch.int32), want.mat[both])
+            and torch.allclose(got[:, 0][both], want.t[both], rtol=1e-5,
+                               atol=1e-5)
+            and torch.allclose(got[:, 1:4][both], want.normal[both],
+                               atol=1e-5)):
+        raise AssertionError("ring cast: hits differ from the full cast")
+    counts = launches_of(r2, "28", "ring", ("cull_cast",))
+    dist_launches["28 ring"] = counts
+    rec28["ring"] = {"hits": int(both.sum()), "rank_ms": ms,
+                     "launches": counts}
+    print(f"phase 28 ring cast {skey}, 2 geom shards [{smi}]: "
+          f"{int(both.sum())} hits equal to the full cast's (valid, mat "
+          f"exact; t, normal 1e-5); per-rank ms {[round(m, 3) for m in ms]}; "
+          f"launches {counts}")
+    rec28["seconds"] = (time.perf_counter() - t_p + r2[0]["28"]["seconds"]
+                        + r4[0]["seconds"])
+    out["28"] = rec28
+    print(f"phase 28: {rec28['seconds']:.1f} s (ranks "
+          f"{r2[0]['28']['seconds']:.1f} s on 1x2, {r4[0]['seconds']:.1f} s "
+          "on 2x2)")
+
+    # ---- phase 29: the geometry-sharded step --------------------------------
+    t_p = time.perf_counter()
+    scene, cam, cfg = _dist_world(WORLD, small, dev, early_exit=False,
+                                  edge_aware_grads=True)
+    target = torch.zeros(small[1], small[0], 4, device=dev)
+
+    def single_step():
+        p = trainable_params(scene, cam, include_vertices=True)
+        loss = make_loss_fn(scene, cam, cfg, target)(p)
+        return loss.detach(), grad_of(loss, p)
+
+    loss, grads = single_step()
+    s_ms = timed(single_step)
+    recs = [r["29"]["step"] for r in r2]
+    diff = max(_dist_grads("geometry-sharded step", rec["grads"], grads,
+                           rec["loss"], float(loss)) for rec in recs)
+    counts = launches_of(r2, "29", "step", ("cull_cast", "cull_occlude",
+                                            "cull_cast_exact_uv"))
+    dist_launches["29 step"] = counts
+    local = dist._local_scene(scene, dist.take_shard(
+        dist.split_scene_by_instances(scene, 2), 0, dev))
+    ro, rd = dist._padded_rays(cam, cfg, small[1])
+    _same_as_plain("K4 exact_uv/K5 on terrain8's shard 0", local, cfg,
+                   ro.reshape(-1, 3), rd.reshape(-1, 3), fused=False)
+    out["29"] = {"max_abs_diff": diff, "rank_ms": [r["ms"] for r in recs],
+                 "single_ms": s_ms, "launches": counts, "loss": float(loss),
+                 "seconds": time.perf_counter() - t_p
+                 + r2[0]["29"]["seconds"]}
+    print(f"phase 29 geometry-sharded step {skey}, vertices, edge-aware, "
+          f"1x2 [{smi}]: loss {float(loss):.6f}, grads max abs diff {diff} "
+          f"from the single process; per-rank ms "
+          f"{[round(r['ms'], 3) for r in recs]} ({note}), single process "
+          f"{s_ms:.3f} ms; launches (both ranks) {counts}; "
+          f"{out['29']['seconds']:.1f} s")
+
+    # ---- phase 30: dryrun_multichip(2) at 1080p -----------------------------
+    t_p = time.perf_counter()
+    scene, cam, cfg = dist.dryrun_config(*big, dev)
+    target = torch.zeros(big[1], big[0], 4, device=dev)
+
+    def single_dry():
+        p = trainable_params(scene, cam, include_camera=True,
+                             include_vertices=True)
+        loss = make_loss_fn(scene, cam, cfg, target)(p)
+        return loss.detach(), grad_of(loss, p)
+
+    loss, grads = single_dry()
+    s_ms = timed(single_dry, reps=2)
+    recs = [r["30"]["dryrun"] for r in r2]
+    diff = max(_dist_grads("dryrun_multichip(2)", rec["grads"], grads,
+                           rec["loss"], float(loss)) for rec in recs)
+    counts = launches_of(r2, "30", "dryrun", ("bvh_cast", "bvh_occlude2",
+                                              "bvh_cast_exact_uv"))
+    dist_launches["30 dryrun"] = counts
+    hp = dist.pad_to_multiple(big[1], 2 * dist.BAND)
+    from raytracer_tpu_torch.render.engine import spp_jitter_grid
+    offs, shift = spp_jitter_grid(cfg.spp, *big, dev)
+    ro, rd = dist._padded_rays(cam, cfg, hp, jitter=(offs[0] + shift) % 1.0)
+    rows = hp // 2
+    _same_as_plain(f"K1 exact_uv/K2 on rank 1's rows of sample 0 ({rows}x"
+                   f"{big[0]})", scene, cfg, ro[rows:].reshape(-1, 3),
+                   rd[rows:].reshape(-1, 3), fused=True)
+    g = recs[0]["grads"]
+    l1 = {"vert_grad_l1": float(g[VERTS].abs().sum()),
+          "cam_grad_l1": float(g["['cam_pos']"].abs().sum()
+                               + g["['cam_rot']"].abs().sum())}
+    out["30"] = {"loss": recs[0]["loss"], **l1, "max_abs_diff": diff,
+                 "rank_ms": [r["ms"] for r in recs], "single_ms": s_ms,
+                 "launches": counts, "seconds": time.perf_counter() - t_p
+                 + r2[0]["30"]["seconds"]}
+    print(f"phase 30 dryrun_multichip(2) terrain8 {bkey} spp 2 [{smi}]: loss "
+          f"{recs[0]['loss']:.6f}, vert_grad_l1 {l1['vert_grad_l1']:.6f}, "
+          f"cam_grad_l1 {l1['cam_grad_l1']:.6f}, grads max abs diff {diff} "
+          f"from the single process; per-rank ms (the whole call) "
+          f"{[round(r['ms'], 3) for r in recs]} ({note}), single-process "
+          f"step {s_ms:.3f} ms; launches (both ranks) {counts}; "
+          f"{out['30']['seconds']:.1f} s")
+    out["dist_launches"] = dist_launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2321,6 +2859,15 @@ def main(argv=None) -> int:
     report["spp"] = _spp(dev, smi)
     report["spp"]["seconds"] = time.perf_counter() - t_s
     print(f"spp phases: {report['spp']['seconds']:.1f} s")
+    # ---- phases 27-30: the distribution layer -------------------------------
+    t_d = time.perf_counter()
+    report["dist"] = _dist(dev, smi)
+    report["dist"]["seconds"] = time.perf_counter() - t_d
+    print(f"dist phases: {report['dist']['seconds']:.1f} s")
+    dist_launches = {}
+    for label, counts in report["dist"]["dist_launches"].items():
+        for name, n in counts.items():
+            dist_launches.setdefault(name, {})[label] = n
     spp_launches = {}
     for label, rec in report["spp"]["cells"].items():
         for name, n in rec["launches"].items():
@@ -2367,7 +2914,8 @@ def main(argv=None) -> int:
          "bound_ms": bounds[name]["bound_ms"],
          "bound_by": bounds[name]["bound_by"], "library_ms": None,
          "device_ms": timing[main_key][f"{key}_device_ms"],
-         "spp_launches": spp_launches.get(name, {})}
+         "spp_launches": spp_launches.get(name, {}),
+         "dist_launches": dist_launches.get(name, {})}
         for name, source, replaces, key in rows]}
     report["kernels"] = kernels_line["kernels"]
     report["seconds"] = time.perf_counter() - t_start

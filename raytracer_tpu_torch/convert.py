@@ -11,6 +11,10 @@ right attributes (numpy or JAX array leaves) is accepted.
 dict of ``raytracer_tpu.diff`` (materials, lights, camera) both ways, so
 that both packages can take the same parameters and their gradients can be
 compared leaf by leaf.
+
+``device`` is a required keyword of every function here that builds
+tensors: the port runs on the card unless its caller asks for the CPU, so a
+caller that wants the CPU says ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -37,12 +41,12 @@ def _from_fields(cls, src):
     return cls(**kw)
 
 
-def scene_from_numpy(jax_scene, device="cpu") -> Scene:
+def scene_from_numpy(jax_scene, *, device) -> Scene:
     """The port's Scene on ``device`` from the JAX package's Scene leaves."""
     return to_device(_from_fields(Scene, jax_scene), device)
 
 
-def camera_from_numpy(jax_camera, device="cpu") -> Camera:
+def camera_from_numpy(jax_camera, *, device) -> Camera:
     """The port's Camera on ``device`` from the JAX package's Camera."""
     return to_device(_from_fields(Camera, jax_camera), device)
 
@@ -63,15 +67,16 @@ def config_from_jax(jax_cfg) -> RenderConfig:
 _PARAM_TYPES = {"materials": Materials, "lights": Lights}
 
 
-def params_from_numpy(jax_params) -> dict:
-    """The port's parameter dict (CPU leaves with ``requires_grad``) from
-    the JAX package's ``trainable_params`` dict."""
+def params_from_numpy(jax_params, *, device) -> dict:
+    """The port's parameter dict (leaves on ``device`` with
+    ``requires_grad``) from the JAX package's ``trainable_params`` dict."""
     out = {}
     for k, v in jax_params.items():
         v = (_from_fields(_PARAM_TYPES[k], v) if k in _PARAM_TYPES
              else np.asarray(v))
         out[k] = tree.tree_map(
-            lambda x: torch.from_numpy(np.array(x)).requires_grad_(True), v)
+            lambda x: torch.from_numpy(np.array(x)).to(device)
+            .requires_grad_(True), v)
     return out
 
 

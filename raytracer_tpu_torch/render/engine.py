@@ -31,7 +31,7 @@ backward and leaves the forward frame bit for bit as it is.
 
 At ``spp > 1`` a frame is the mean of ``spp`` sample frames, each through
 jittered sub-pixel rays (``spp_jitter_grid``: R2 offsets plus a per-pixel
-toroidal shift), summed by ``_scan_samples`` over cast tables built once a
+toroidal shift), summed by ``sum_samples`` over cast tables built once a
 frame (``prepare_cast``).  Each sample runs under a
 ``torch.utils.checkpoint`` whose backward recomputes it, so reverse-mode
 memory does not grow with spp beyond its shadow masks (1 bit a ray and
@@ -396,6 +396,16 @@ def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
     return clamp_frame(acc).reshape(ray_o.shape[:-1] + (4,)), dropped
 
 
+def render_rays(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+                cfg: RenderConfig, ray_o, ray_d, pixel_angle=None):
+    """:func:`render_rays_stats` without the drop count (the JAX
+    package's ``render_rays``): the row blocks of the sharded renders
+    (``dist.py``) go through it."""
+    img, _ = render_rays_stats(scene, geom, cast_fn, cfg, ray_o, ray_d,
+                               pixel_angle)
+    return img
+
+
 def clamp_frame(acc):
     """``min(acc, 1)``, the canvas write's clamp.  ``torch.minimum``, not
     ``clamp``: at ``acc == 1`` it passes half the gradient, as
@@ -533,23 +543,17 @@ def _sample_frame(scene, geom, aux, camera, cfg: RenderConfig, off, shift,
                              (off + shift) % 1.0, lane=lane)
 
 
-def _scan_samples(scene, geom, aux, camera, cfg: RenderConfig, offs, shift,
-                  remat: bool = True, lane=None):
-    """The SUM of the sample frames at the offsets ``offs [k, 2]`` and the
-    summed drop count.  ``remat=True`` runs each sample under
-    ``torch.utils.checkpoint`` (non-reentrant): reverse mode recomputes a
-    sample instead of keeping its intermediates, and the recompute replays
-    the sample's shadow masks from its tape (``shading.mask_tape_contexts``)
-    instead of querying again.  Without grad mode (a frame to view, the
-    first pass of a chunked step) nothing is recomputed: no checkpoint."""
-
-    def sample(off):
-        return _sample_frame(scene, geom, aux, camera, cfg, off, shift,
-                             lane=lane)
-
-    acc = torch.zeros(cfg.height, cfg.width, 4, dtype=torch.float32,
-                      device=offs.device)
-    drops = torch.zeros((), dtype=torch.int32, device=offs.device)
+def sum_samples(sample, offs, remat: bool = True):
+    """The SUM over the offsets ``offs [k, 2]`` of ``sample(off) -> (img,
+    dropped)``, frames and drop counts.  ``remat=True`` runs each sample
+    under ``torch.utils.checkpoint`` (non-reentrant): reverse mode
+    recomputes a sample instead of keeping its intermediates, and the
+    recompute replays the sample's shadow masks from its tape
+    (``shading.mask_tape_contexts``) instead of querying again.  Without
+    grad mode (a frame to view, the first pass of a chunked step) nothing
+    is recomputed: no checkpoint.  The sweep of :func:`_scan_samples` and
+    of the sharded row blocks (``dist.py``)."""
+    acc = drops = 0
     for off in offs:
         if remat and torch.is_grad_enabled():
             img, d = torch.utils.checkpoint.checkpoint(
@@ -560,6 +564,18 @@ def _scan_samples(scene, geom, aux, camera, cfg: RenderConfig, offs, shift,
         acc = acc + img
         drops = drops + d
     return acc, drops
+
+
+def _scan_samples(scene, geom, aux, camera, cfg: RenderConfig, offs, shift,
+                  remat: bool = True, lane=None):
+    """The SUM of the sample frames at the offsets ``offs [k, 2]`` and the
+    summed drop count (:func:`sum_samples` of :func:`_sample_frame`)."""
+
+    def sample(off):
+        return _sample_frame(scene, geom, aux, camera, cfg, off, shift,
+                             lane=lane)
+
+    return sum_samples(sample, offs, remat)
 
 
 def _spp_lane(scene, geom, aux, camera, cfg: RenderConfig):

@@ -21,7 +21,7 @@ passes the whole gradient where JAX passes half.
 
 Every opaque shadow mask goes through :func:`shadow_masks`, the port's
 counterpart of the JAX package's ``checkpoint_name(..., "shadow_occl")``:
-inside a per-sample checkpoint (``engine._scan_samples``) the forward
+inside a per-sample checkpoint (``engine.sum_samples``) the forward
 records the masks on a :class:`MaskTape`, bit-packed, and the backward's
 recompute replays them, so that it runs no any-hit query.
 """

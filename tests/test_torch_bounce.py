@@ -47,8 +47,8 @@ def _pair(jscene_np, jcam_np, jcfg):
     scene (``jcfg`` with ``engine="pallas"``)."""
     return dict(jscene=device_scene(jscene_np),
                 jcam=jax.tree_util.tree_map(jnp.asarray, jcam_np), jcfg=jcfg,
-                scene=convert.scene_from_numpy(jscene_np),
-                cam=convert.camera_from_numpy(jcam_np),
+                scene=convert.scene_from_numpy(jscene_np, device="cpu"),
+                cam=convert.camera_from_numpy(jcam_np, device="cpu"),
                 cfg=convert.config_from_jax(jcfg).replace(engine="torch"))
 
 
@@ -158,7 +158,7 @@ def test_mixed_grads_match_jax(mixed):
         w["jscene"], w["jcam"], jcfg, jnp.asarray(target))))(jparams)
     port = {}
     for eng in ("torch", "cuda"):
-        params = convert.params_from_numpy(jparams)
+        params = convert.params_from_numpy(jparams, device="cpu")
         loss = diff.make_loss_fn(w["scene"], w["cam"],
                                  w["cfg"].replace(engine=eng),
                                  torch.from_numpy(target))(params)

@@ -63,7 +63,7 @@ def world():
     jw = jrt.generate(WORLD)
     jscene = device_scene(jw.scene)
     jgeom = jgeometry.expand_geometry(jscene)
-    scene = convert.scene_from_numpy(jw.scene)
+    scene = convert.scene_from_numpy(jw.scene, device="cpu")
     geom = geometry.expand_geometry(scene)
     return dict(jw=jw, jscene=jscene, jgeom=jgeom, scene=scene, geom=geom)
 
@@ -880,7 +880,7 @@ def frames(world, request):
     jcfg = jw.config.replace(width=w, height=h, engine="pallas", **change)
     jimg = np.asarray(jax.jit(jrender_frame, static_argnames=("cfg",))(
         world["jscene"], jax.tree_util.tree_map(jnp.asarray, jcam_np), jcfg))
-    cam = convert.camera_from_numpy(jcam_np)
+    cam = convert.camera_from_numpy(jcam_np, device="cpu")
     cfg = convert.config_from_jax(jcfg)
     assert cfg.pallas_traversal == "auto" and not ce._use_walk(
         cfg, world["scene"].inst_pos.shape[0])
@@ -917,7 +917,7 @@ def test_cull_casts_launch_no_walk_kernel(world):
     walk = (ce.bvh_cast, ce.bvh_occlude, ce.bvh_occlude2)
     before = [k.launches for k in walk]
     render_frame(world["scene"], convert.camera_from_numpy(
-        jscale_camera(world["jw"].camera, 16, 640)), cfg)
+        jscale_camera(world["jw"].camera, 16, 640), device="cpu"), cfg)
     assert [k.launches for k in walk] == before
 
 
@@ -934,11 +934,11 @@ def grads(world, request):
     jparams = jdiff.trainable_params(world["jscene"], jcam)
     jloss, jg = jax.jit(jax.value_and_grad(jdiff.make_loss_fn(
         world["jscene"], jcam, jcfg, jnp.asarray(target))))(jparams)
-    cam = convert.camera_from_numpy(jcam_np)
+    cam = convert.camera_from_numpy(jcam_np, device="cpu")
     cfg = convert.config_from_jax(jcfg)
     out = {}
     for engine in ("torch", "cuda"):
-        params = convert.params_from_numpy(jparams)
+        params = convert.params_from_numpy(jparams, device="cpu")
         loss = diff.make_loss_fn(world["scene"], cam,
                                  cfg.replace(engine=engine),
                                  torch.from_numpy(target))(params)

@@ -44,9 +44,9 @@ def _frames(path, **change):
     jcfg = jw.config.replace(width=W, height=H, engine="pallas", **change)
     jimg = np.asarray(jax.jit(jrender_frame, static_argnames=("cfg",))(
         device_scene(jw.scene), jcam, jcfg))
-    scene = convert.scene_from_numpy(jw.scene)
-    cam = convert.camera_from_numpy(jscale_camera(jw.camera, W,
-                                                  jw.config.width))
+    scene = convert.scene_from_numpy(jw.scene, device="cpu")
+    cam = convert.camera_from_numpy(
+        jscale_camera(jw.camera, W, jw.config.width), device="cpu")
     cfg = convert.config_from_jax(jcfg).replace(engine="torch")
     return dict(jimg=jimg, scene=scene, cam=cam, cfg=cfg)
 

@@ -78,7 +78,7 @@ EPS_DIAG = 1e-5
 def _world(name):
     jw = jrt.generate(os.path.join(WORLDS, f"{name}.json"))
     jscene = device_scene(jw.scene)
-    scene = convert.scene_from_numpy(jw.scene)
+    scene = convert.scene_from_numpy(jw.scene, device="cpu")
     return dict(jw=jw, jscene=jscene, jgeom=jgeometry.expand_geometry(jscene),
                 scene=scene, geom=geometry.expand_geometry(scene))
 
@@ -243,7 +243,8 @@ CASES = {
 def test_edge_aware_forward_frame_is_unchanged(worlds, case):
     name, change = CASES[case]
     wd = worlds[name]
-    cam = convert.camera_from_numpy(jscale_camera(wd["jw"].camera, W, 640))
+    cam = convert.camera_from_numpy(jscale_camera(wd["jw"].camera, W, 640),
+                                    device="cpu")
     cfg = convert.config_from_jax(wd["jw"].config).replace(
         width=W, height=H, engine="cuda", **change)
     img0 = render_frame(wd["scene"], cam, cfg)
@@ -267,11 +268,11 @@ def grads(worlds, request):
                                      include_vertices=True)
     jloss, jg = jax.jit(jax.value_and_grad(jdiff.make_loss_fn(
         wd["jscene"], jcam, jcfg, jnp.asarray(target))))(jparams)
-    cam = convert.camera_from_numpy(jcam_np)
+    cam = convert.camera_from_numpy(jcam_np, device="cpu")
     cfg = convert.config_from_jax(jcfg)
     out = {}
     for engine in ("torch", "cuda"):
-        params = convert.params_from_numpy(jparams)
+        params = convert.params_from_numpy(jparams, device="cpu")
         loss = diff.make_loss_fn(wd["scene"], cam, cfg.replace(engine=engine),
                                  torch.from_numpy(target))(params)
         out[engine] = (float(loss.detach()), diff.grad_of(loss, params))
@@ -361,7 +362,7 @@ def test_vertex_scaling_ad_over_fd_matches_jax(worlds):
     j_ad = float(jax.grad(jloss)(0.0))
     j_fd = (float(jloss(step)) - float(jloss(-step))) / (2 * step)
 
-    cam = convert.camera_from_numpy(cam_np)
+    cam = convert.camera_from_numpy(cam_np, device="cpu")
     cfg = convert.config_from_jax(jcfg)
 
     def loss(s):
@@ -414,8 +415,8 @@ def stale(worlds):
     bmin = np.asarray(jw.scene.mesh_aabb_min, np.float32)
     bmax = np.asarray(jw.scene.mesh_aabb_max, np.float32)
     out = dict(wd=wd, jcam=jcam, jcfg=jcfg, cam=convert.camera_from_numpy(
-        cam_np), cfg=convert.config_from_jax(jcfg), scenes={}, frames={},
-        jframes={})
+        cam_np, device="cpu"), cfg=convert.config_from_jax(jcfg), scenes={},
+        frames={}, jframes={})
     for s in SCALES:
         f = np.float32(1.0 + s)
         v = verts * f
@@ -574,7 +575,8 @@ def test_mesh_boxes_equal_stored_boxes(worlds, world):
     if world in worlds:
         scene = worlds[world]["scene"]
     elif world == "spheres":
-        scene = convert.scene_from_numpy(synth.make_sphere_world(8)[0])
+        scene = convert.scene_from_numpy(synth.make_sphere_world(8)[0],
+                                         device="cpu")
     else:
         rng = np.random.default_rng(11)
         sb = SceneBuilder()

@@ -47,7 +47,7 @@ def worlds():
     tw = rtt.generate(WORLD)
     jscene = device_scene(jw.scene)
     jgeom = jgeometry.expand_geometry(jscene)
-    scene = convert.scene_from_numpy(jw.scene)
+    scene = convert.scene_from_numpy(jw.scene, device="cpu")
     geom = geometry.expand_geometry(scene)
     return jw, tw, jscene, jgeom, scene, geom
 
@@ -132,13 +132,28 @@ def test_terrain_matches_golden(run_idx, grid):
 
 def test_convert_carries_jax_scene_exactly(worlds):
     jw, tw, *_ = worlds
-    a = convert.scene_from_numpy(jw.scene)
+    a = convert.scene_from_numpy(jw.scene, device="cpu")
     b = rtt.to_device(tw.scene, "cpu")
     for (na, va), (nb, vb) in zip(_leaves(a), _leaves(b)):
         assert na == nb
         assert torch.equal(torch.as_tensor(va), torch.as_tensor(vb)), na
-    cam = convert.camera_from_numpy(jw.camera)
+    cam = convert.camera_from_numpy(jw.camera, device="cpu")
     assert torch.equal(cam.rot, torch.from_numpy(np.asarray(jw.camera.rot)))
+
+
+def test_convert_requires_a_device(worlds):
+    """The carry names its device: without one it raises, and never
+    falls back to the CPU; ``params_from_numpy`` builds its leaves there,
+    each with ``requires_grad``."""
+    jw, *_ = worlds
+    jparams = {"cam_pos": np.asarray(jw.camera.pos)}
+    for fn, arg in ((convert.scene_from_numpy, jw.scene),
+                    (convert.camera_from_numpy, jw.camera),
+                    (convert.params_from_numpy, jparams)):
+        with pytest.raises(TypeError):
+            fn(arg)
+    (leaf,) = convert.params_from_numpy(jparams, device="cpu").values()
+    assert leaf.device.type == "cpu" and leaf.requires_grad
 
 
 def _random_boxes(rng, n, dup=0):
@@ -231,8 +246,8 @@ def test_camera_rays_match(worlds, size):
     w, h = size
     jcam = jax.tree_util.tree_map(
         jnp.asarray, jscale_camera(jw.camera, w, jw.config.width))
-    cam = convert.camera_from_numpy(scale_camera(tw.camera, w,
-                                                 tw.config.width))
+    cam = convert.camera_from_numpy(
+        scale_camera(tw.camera, w, tw.config.width), device="cpu")
     jo, jd = jgeometry.camera_rays(jcam, w, h)
     to, td = geometry.camera_rays(cam, w, h)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-6)

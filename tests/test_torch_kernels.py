@@ -50,7 +50,7 @@ def setup():
     jscene = device_scene(jw.scene)
     jgeom = jgeometry.expand_geometry(jscene)
     cfg = jw.config.replace(engine="pallas")
-    scene = convert.scene_from_numpy(jw.scene)
+    scene = convert.scene_from_numpy(jw.scene, device="cpu")
     geom = geometry.expand_geometry(scene)
     data = ce.prepare_cast(scene, geom, convert.config_from_jax(cfg))
     jaux = pe.prepare_pallas_cast(jscene, jgeom, cfg)

@@ -59,7 +59,7 @@ def world():
     jscene = device_scene(jw.scene)
     jgeom = jgeometry.expand_geometry(jscene)
     jcfg = jw.config.replace(engine="pallas", pallas_kernel="mxu")
-    scene = convert.scene_from_numpy(jw.scene)
+    scene = convert.scene_from_numpy(jw.scene, device="cpu")
     geom = geometry.expand_geometry(scene)
     cfg = convert.config_from_jax(jcfg)
     jinner = pallas_mxu.make_mxu_cast(jscene, jgeom, jcfg)
@@ -431,8 +431,8 @@ def _jax_frame(world, w, h, **change):
     jimg = np.asarray(jax.jit(jrender_frame, static_argnames=("cfg",))(
         world["jscene"], jax.tree_util.tree_map(jnp.asarray, jcam_np),
         jcfg))
-    return jimg, convert.camera_from_numpy(jcam_np), convert.config_from_jax(
-        jcfg)
+    return (jimg, convert.camera_from_numpy(jcam_np, device="cpu"),
+            convert.config_from_jax(jcfg))
 
 
 @pytest.mark.parametrize("wh", [(48, 32), (64, 64)])
@@ -462,9 +462,9 @@ def test_mxu_loss_grads_match_jax_pallas(world):
     jparams = jdiff.trainable_params(world["jscene"], jcam)
     jloss, jg = jax.jit(jax.value_and_grad(jdiff.make_loss_fn(
         world["jscene"], jcam, jcfg, jnp.asarray(target))))(jparams)
-    cam = convert.camera_from_numpy(jcam_np)
+    cam = convert.camera_from_numpy(jcam_np, device="cpu")
     cfg = convert.config_from_jax(jcfg)
-    params = convert.params_from_numpy(jparams)
+    params = convert.params_from_numpy(jparams, device="cpu")
     loss = diff.make_loss_fn(world["scene"], cam, cfg.replace(engine="torch"),
                              torch.from_numpy(target))(params)
     g = diff.grad_of(loss, params)

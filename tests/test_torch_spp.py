@@ -199,7 +199,7 @@ def _jax_step(w, include_vertices=False, **kw):
 
 
 def _port_step(w, jparams, include_vertices=False, **kw):
-    params = convert.params_from_numpy(jparams)
+    params = convert.params_from_numpy(jparams, device="cpu")
     cfg = w["cfg"].replace(edge_aware_grads=include_vertices)
     return diff.make_spp_grad_fn(w["scene"], w["cam"], cfg, SPP, **kw)(
         params, torch.from_numpy(_target()))

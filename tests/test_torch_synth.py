@@ -173,8 +173,9 @@ def mixed():
     jcfg = jcfg.replace(width=W, height=H, engine="pallas")
     return dict(jscene=device_scene(jscene_np),
                 jcam=jax.tree_util.tree_map(jnp.asarray, jcam_np),
-                jcfg=jcfg, scene=convert.scene_from_numpy(jscene_np),
-                cam=convert.camera_from_numpy(jcam_np),
+                jcfg=jcfg,
+                scene=convert.scene_from_numpy(jscene_np, device="cpu"),
+                cam=convert.camera_from_numpy(jcam_np, device="cpu"),
                 cfg=convert.config_from_jax(jcfg).replace(engine="torch"))
 
 

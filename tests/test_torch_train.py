@@ -213,12 +213,12 @@ def grads(request):
     jloss, jg = jax.jit(jax.value_and_grad(jdiff.make_loss_fn(
         jscene, jcam, jcfg, jnp.asarray(target))))(jparams)
 
-    scene = convert.scene_from_numpy(jw.scene)
-    cam = convert.camera_from_numpy(jcam_np)
+    scene = convert.scene_from_numpy(jw.scene, device="cpu")
+    cam = convert.camera_from_numpy(jcam_np, device="cpu")
     cfg = convert.config_from_jax(jcfg)
     out = {}
     for engine in ("torch", "cuda"):
-        params = convert.params_from_numpy(jparams)
+        params = convert.params_from_numpy(jparams, device="cpu")
         loss = diff.make_loss_fn(scene, cam, cfg.replace(engine=engine),
                                  torch.from_numpy(target))(params)
         out[engine] = (float(loss.detach()), diff.grad_of(loss, params))
@@ -292,7 +292,8 @@ def test_train_step_lowers_loss(small):
 def test_params_roundtrip_through_numpy(small):
     scene, cam, _ = small
     params = diff.trainable_params(scene, cam)
-    back = convert.params_from_numpy(convert.params_to_numpy(params))
+    back = convert.params_from_numpy(convert.params_to_numpy(params),
+                                     device="cpu")
     for (ka, a), (kb, b) in zip(tree.leaves_with_paths(params),
                                 tree.leaves_with_paths(back)):
         assert ka == kb and torch.equal(a, b) and b.requires_grad

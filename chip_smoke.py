@@ -136,8 +136,8 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    auto_tile_caps' static_tile_cap, early_exit off and a zero target:
    terrain8 1024x1024 spp 16 (a frame), terrain8_stress 1920x1080 spp 128
    (fwd+bwd of materials, lights and camera, spp_chunk None) and the same
-   with vertices and edge-aware grads: one warm step, then 2 timed (CUDA
-   events; the minimum and both), Mrays/s = W*H*spp / ms / 1e3, dropped
+   with vertices and edge-aware grads: one warm step, then 1 timed (CUDA
+   events), Mrays/s = W*H*spp / ms / 1e3, dropped
    (must be 0), peak memory over what was allocated before the step
    (within 1.25x of the same step's at spp 8), and
    the idle share and top kernels of one profiled step at spp 8;
@@ -167,6 +167,34 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    plain versions on rank 1's rows of sample 0.
    Per phase: seconds, per-rank ms (CUDA events in each rank) and the
    single process's ms from the same call.
+31-34. the ops surface:
+31. texture mapping: terrain8 (the walk) and terrain6 (the cull, and the
+   MXU cast) with their top cube type textured from a 256x256 checker
+   atlas (``textured_scene``, the fixture of tests/test_torch_texture.py),
+   at 640x480 and 1920x1080, counters reset just before each frame: the
+   frame equal to the "torch" engine's (atol 1e-5) and unlike the
+   untextured one, the textured type off the box fast path, K1/K2, K4/K5
+   and K6 identical to their plain versions on the frame's primary rays
+   and its shadow queries (K6: the shadow rays' closest hits); the 1080p
+   fwd+bwd step of textured terrain8 against the "torch" engine (rtol
+   1e-4 / atol 1e-6); frame ms (median of 10) beside the untextured
+   frame's, and K1's ms per launch and device ms on the template path
+   beside the box path's (and both bounds at 640x480);
+32. the debug probe (raytracer_tpu_torch/debug.py) on the 1080p
+   terrain8_mixed frame: at six bounce pixels and two plain ones
+   (tests/test_mixed_wavefront.py's pick), debug_cast's colour equal to the
+   frame pixel at rtol/atol 1e-4, K1 alone launched; the 1-ray cast of each
+   pixel's primary ray equal to the same ray's hit inside the frame batch;
+   one terrain8 pixel (the fused round: K1 and K2 on one ray);
+33. cli.main in this process: 2 training steps of terrain8 at 1920x1080
+   with --profile-dir (the trace names bvh_cast_kernel and
+   bvh_occlude2_kernel; device busy ms and idle share read from it), and
+   one -b --wavefront-cap 0.5 -r bench of terrain8_stress at 640x480;
+34. elastic training: cli.main --elastic 1 --train-until 3 on terrain8 at
+   640x480 with RT_FAULT_AT_STEP=2 (the worker, a process of its own,
+   exits 13 after step 2 and is restarted from its checkpoint): exit 0,
+   ``crash rc=13`` logged, the final checkpoint equal to an uninterrupted
+   run's at rtol 1e-4 / atol 1e-6; the phase's seconds.
 
 Beside each kernel's ms per launch (CUDA events around the wrapper: the
 ctypes call and the output allocation included) the device time alone is
@@ -190,7 +218,9 @@ once (no staged copy of the columns: no implementation needs one).
 The line before the last is a JSON object describing each kernel (K1's
 exact_uv and visits instantiations and K4's exact_uv one as rows of their
 own; ``spp_launches``: its launches in each phase-26 cell;
-``dist_launches``: its launches over the ranks in each phase 27-30 path);
+``dist_launches``: its launches over the ranks in each phase 27-30 path;
+``texture_launches``: in each phase-31 frame and step; ``ops_launches``:
+in each phase-32 probe and phase-33 CLI run);
 the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -328,6 +358,8 @@ def _compare_hits(label, hk, hp):
     largest abs difference, 0."""
     for name in ("valid", "t", "wtri", "uv", "normal", "mat"):
         a, b = getattr(hk, name), getattr(hp, name)
+        if a is None and b is None:  # the MXU cast gives no normal or mat
+            continue
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: {name} differs on "
                                  f"{int((a != b).sum())} values")
@@ -1881,7 +1913,7 @@ def _spp(dev, smi):
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         times = []
-        for _ in range(2):
+        for _ in range(1):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1904,7 +1936,7 @@ def _spp(dev, smi):
                         label=f"{label} at spp {SPP_REF}")
         ms = min(times)
         rec = {"spp": n_spp, "size": list(size), "static_tile_cap": cap,
-               "ms": ms, "ms_both": times,
+               "ms": ms,
                "mrays_per_s": rays * n_spp / ms / 1e3, "dropped": 0,
                "launches": counts, "peak_bytes": peak,
                "allocated_before_bytes": base,
@@ -1912,8 +1944,8 @@ def _spp(dev, smi):
                "peak_ratio": peak / peak_ref,
                f"profile_spp{SPP_REF}": prof}
         out["cells"][label] = rec
-        print(f"{label} [{smi}]: {ms:.3f} ms (min of {times[0]:.3f}, "
-              f"{times[1]:.3f}; CUDA events after one warm-up), "
+        print(f"{label} [{smi}]: {ms:.3f} ms (one timed run after one "
+              f"warm-up, CUDA events), "
               f"{rec['mrays_per_s']:.3f} Mrays/s, dropped 0, kept-tile cap "
               f"{cap:.4f}, launches {counts}, peak memory {peak / 2**20:.1f} "
               f"MiB over the {base / 2**20:.1f} MiB allocated before "
@@ -2079,7 +2111,9 @@ def _same_as_plain(label, scene, cfg, o, d, fused):
     their plain versions on the rays ``(o, d)`` (launches here are
     comparisons, not the main path's): every hit output identical; then the
     two lights' shadow queries of those hits, through ``occlude2`` (K2)
-    where ``fused``, else ``occlude`` per light, identical masks."""
+    where ``fused``, else ``occlude`` per light, identical masks; a cast
+    without any-hit queries (the MXU cast) casts the shadow rays for their
+    closest hits, every output identical."""
     from raytracer_tpu_torch.render.engine import make_cast
     from raytracer_tpu_torch.render.geometry import expand_geometry
     from raytracer_tpu_torch.render.shading import shadow_rays
@@ -2095,6 +2129,14 @@ def _same_as_plain(label, scene, cfg, o, d, fused):
                                             hk.valid)
         q = (o1, d1, dist1, o2, d2.contiguous(),
              torch.full_like(dist1, float("inf")))
+        if getattr(ck, "occlude", None) is None:
+            for k, (so, sd) in enumerate(((o1, d1), (o2, q[4]))):
+                _compare_hits(f"{label}: shadow rays {k}", ck(so, sd),
+                              cp(so, sd))
+            print(f"{label}: {int(hk.valid.sum())} hits of {o.shape[0]} "
+                  "rays, their two lights' shadow rays: every output "
+                  "identical to plain (closest hits)")
+            return
         if fused:
             bk, bp = ck.occlude2(*q), cp.occlude2(*q)
         else:
@@ -2434,6 +2476,403 @@ def _dist(dev, smi):
           f"{out['30']['seconds']:.1f} s")
     out["dist_launches"] = dist_launches
     return out
+
+
+# ---- phases 31-34: the ops surface -----------------------------------------
+
+TEX_ATLAS = 256  # texels a side of the checker atlas of phase 31
+
+
+def checker_atlas(n):
+    """An ``n x n`` RGBA atlas with a colour of its own in every texel (the
+    textured fixture of ``tests/test_torch_texture.py``)."""
+    x = np.arange(n, dtype=np.float32)[None, :].repeat(n, 0)
+    y = np.arange(n, dtype=np.float32)[:, None].repeat(n, 1)
+    return np.stack([x / n, y / n, (x + y) / (2 * n),
+                     np.ones((n, n), np.float32)], -1)
+
+
+def textured_scene(scene, mesh=-1, n=TEX_ATLAS):
+    """The numpy ``scene`` with mesh ``mesh``'s triangles (the top cube
+    type of a terrain) textured: triangle ``k`` of the mesh maps to its own
+    63x63 rect of the checker atlas."""
+    start = int(scene.mesh_tri_start[mesh])
+    count = int(scene.mesh_tri_count[mesh])
+    rect = np.array(scene.tri_coord_rect, np.float32)
+    degenerate = np.array(scene.tri_coord_degenerate, bool)
+    for k in range(count):
+        rect[start + k] = [(k % 4) * 64, (k // 4) * 64, 63, 63]
+        degenerate[start + k] = False
+    return dataclasses.replace(scene, tri_coord_rect=rect,
+                               tri_coord_degenerate=degenerate,
+                               atlas=checker_atlas(n))
+
+
+def _texture(dev, smi):
+    """Phase 31: texture mapping.  Textured terrain8 on the walk (K1's
+    template loop on the textured type, the box path on the other),
+    textured terrain6 on the cull (K4's template path) and on the MXU cast
+    (K6's uv), at both sizes: each frame (counters reset just before)
+    against the ``"torch"`` engine's and the untextured frame; K1/K4/K6
+    identical to their plain versions on the frame's primary and shadow
+    rays; the 1080p step of textured terrain8 against the ``"torch"``
+    engine; frame ms, and K1's and K4's ms per launch on the template path
+    beside the box path's.  Returns the numbers for the report."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import tree
+    from raytracer_tpu_torch.builder import scale_camera
+    from raytracer_tpu_torch.diff import (grad_of, make_loss_fn,
+                                          trainable_params)
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render import engine as eng
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+
+    out = {"frames": {}, "launches": {}, "kernels": {}}
+    big = SIZES[-1]
+    cells = [("terrain8 walk", WORLD, {}, ("bvh_cast", "bvh_occlude2")),
+             ("terrain6 cull", WORLD6, {}, ("cull_cast", "cull_occlude")),
+             ("terrain6 mxu", WORLD6, {"pallas_kernel": "mxu"},
+              ("mxu_cast",))]
+    worlds = {}
+    for label, path, change, used in cells:
+        t_cell = time.perf_counter()
+        w = rtt.generate(path)
+        scene = rtt.to_device(textured_scene(w.scene), dev)
+        top = scene.inst_mesh == scene.mesh_tri_start.shape[0] - 1
+        for s in SIZES:
+            key = f"{label} {s[0]}x{s[1]}"
+            cam = rtt.to_device(scale_camera(w.camera, s[0],
+                                             w.config.width), dev)
+            cfg = w.config.replace(width=s[0], height=s[1], engine="cuda",
+                                   texture_mapping=True, **change)
+            worlds[key] = (scene, cam, cfg)
+            img, counts = _counted(key, lambda: eng.render_frame(
+                scene, cam, cfg), used)
+            ref = eng.render_frame(scene, cam, cfg.replace(engine="torch"))
+            diff = _frame_checks(f"textured {key}", img, ref, s)
+            flat_cfg = cfg.replace(texture_mapping=False)
+            flat = eng.render_frame(scene, cam, flat_cfg)
+            changed = int(((img - flat).abs().amax(-1) > 1e-3).sum())
+            if changed < 100:
+                raise AssertionError(f"textured {key}: only {changed} "
+                                     "pixels differ from the untextured "
+                                     "frame")
+            ro, rd, _, _ = eng._frame_rays_blocked(cam, cfg)
+            _same_as_plain(f"textured {key}", scene, cfg, ro, rd,
+                           fused=True)
+            ms = _ms(lambda: eng.render_frame(scene, cam, cfg))
+            ms_flat = _ms(lambda: eng.render_frame(scene, cam, flat_cfg))
+            rec = {"max_abs_diff": diff, "changed_pixels": changed,
+                   "launches": counts, "frame_ms": ms,
+                   "untextured_frame_ms": ms_flat}
+            if change.get("pallas_kernel") != "mxu":
+                geom = expand_geometry(scene)
+                tabs = ce.prepare_cast(scene, geom, cfg)
+                is_box = tabs.tables.inst_i32[:, ce._II_IS_BOX] > 0
+                if bool(is_box[top].any()) or not bool(is_box[~top].all()):
+                    raise AssertionError(f"textured {key}: the textured "
+                                         "type must leave the box fast "
+                                         "path, the other keep it")
+                rec["template_instances"] = int(top.sum())
+            out["frames"][key] = rec
+            out["launches"][key] = counts
+            print(f"phase 31 textured {key} [{smi}]: cuda == torch engine "
+                  f"(max abs diff {diff:.3g}), {changed} pixels differ from "
+                  f"the untextured frame; launches {counts}; frame "
+                  f"{ms:.3f} ms (untextured {ms_flat:.3f} ms; median of "
+                  f"{REPS}, CUDA events)")
+        print(f"phase 31 {label}: {time.perf_counter() - t_cell:.1f} s")
+
+    # K1 on the textured frame's primary rays: the template path (the
+    # textured type) beside the box path (the same rays, untextured tables)
+    for s in SIZES:
+        key = f"terrain8 walk {s[0]}x{s[1]}"
+        scene, cam, cfg = worlds[key]
+        geom = expand_geometry(scene)
+        ro, rd, _, _ = eng._frame_rays_blocked(cam, cfg)
+        rec = {}
+        for tname, tcfg in (("template", cfg),
+                            ("box", cfg.replace(texture_mapping=False))):
+            data = ce.prepare_cast(scene, geom, tcfg)
+            rec[f"{tname}_ms"] = _ms(lambda: ce.bvh_cast(ro, rd, data))
+            rec[f"{tname}_device_ms"] = _device_ms(
+                lambda: ce.bvh_cast(ro, rd, data))
+            if s == SIZES[0]:  # the plain version counts the work
+                h = ce.bvh_cast(ro, rd, data)
+                rec[f"{tname}_bound"] = _bound(
+                    _nbytes(ro, rd, h.t, h.wtri, h.uv, h.normal, h.mat,
+                            data.tables.inst_f32, data.tables.inst_i32,
+                            data.tables.tmpl, data.nodes, data.ordering),
+                    _work_ops(_work(ce.bvh_cast_reference, ro, rd, data),
+                              closest_hit=True))
+        out["kernels"][key] = rec
+        bound = ""
+        if "template_bound" in rec:
+            bound = (f"; bound {rec['template_bound']['bound_ms']:.5f} ms "
+                     f"({rec['template_bound']['ops']} FP32 ops) / "
+                     f"{rec['box_bound']['bound_ms']:.5f} ms "
+                     f"({rec['box_bound']['ops']})")
+        print(f"phase 31 K1 on textured {key} [{smi}]: template path "
+              f"{rec['template_ms']:.4f} ms / launch (device "
+              f"{rec['template_device_ms']:.4f} ms) against the box path's "
+              f"{rec['box_ms']:.4f} ms (device {rec['box_device_ms']:.4f} "
+              f"ms){bound}")
+
+    # the 1080p fwd+bwd step of textured terrain8
+    scene, cam, cfg = worlds[f"terrain8 walk {big[0]}x{big[1]}"]
+    target0 = torch.zeros(big[1], big[0], 4, device=dev)
+
+    def step(engine):
+        params = trainable_params(scene, cam)
+        loss = make_loss_fn(scene, cam, cfg.replace(engine=engine),
+                            target0)(params)
+        return loss.detach(), grad_of(loss, params)
+
+    (loss_c, g_c), counts = _counted("textured terrain8 1080p step",
+                                     lambda: step("cuda"),
+                                     ("bvh_cast", "bvh_occlude2"))
+    loss_t, g_t = step("torch")
+    err = 0.0
+    for (key, a), b in zip(tree.leaves_with_paths(g_c), tree.leaves(g_t)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"textured step grad {key} not finite")
+        torch.testing.assert_close(
+            a, b, rtol=RTOL_GRAD, atol=ATOL_GRAD,
+            msg=lambda m, key=key: f"textured step grad {key}: {m}")
+        err = max(err, float((a - b).abs().max()))
+    top_mat = int(scene.tri_mat[int(scene.mesh_tri_start[-1])])
+    if float(g_c["materials"].kd[top_mat].abs().max()) != 0.0:
+        raise AssertionError("textured step: the textured type's kd took a "
+                             "gradient")
+    step_ms = _ms(lambda: step("cuda"), reps=5)
+    out["step"] = {"loss": float(loss_c), "loss_torch": float(loss_t),
+                   "max_abs_grad_diff": err, "launches": counts,
+                   "ms": step_ms}
+    out["launches"][f"terrain8 walk {big[0]}x{big[1]} step"] = counts
+    print(f"phase 31 textured terrain8 {big[0]}x{big[1]} fwd+bwd [{smi}]: "
+          f"loss {float(loss_c):.6f} (torch engine {float(loss_t):.6f}), "
+          f"grads == torch engine (max abs {err:.3g}; rtol {RTOL_GRAD} atol "
+          f"{ATOL_GRAD}), launches {counts}, {step_ms:.3f} ms (median of 5)")
+    return out
+
+
+def _probe_pixels(img, img0, height, width):
+    """``tests/test_mixed_wavefront.py``'s pick: six pixels whose colour
+    the bounces change, spread over the frame, and two plain ones."""
+    bounce = np.argwhere(np.abs(img - img0).max(axis=-1) > 1e-3)
+    sel = bounce[:: max(1, len(bounce) // 6)][:6].tolist()
+    return sel + [[0, 0], [height - 1, width // 2]]
+
+
+def _probe(dev, smi):
+    """Phase 32: the debug probe on the card.  The 1080p terrain8_mixed
+    frame; at six of its bounce pixels and two plain ones, ``debug_cast``
+    (K1 on 1-ray batches: the casts, the narrated marches, the shading's
+    march) with the counters reset just before, its colour against the
+    frame pixel at rtol/atol 1e-4, and the 1-ray cast of the pixel's
+    primary ray against the same ray inside the frame's batch (every
+    output identical); then one terrain8 pixel, whose fused shadow round
+    runs K2 on one ray.  Returns the numbers for the report."""
+    import contextlib
+    import io
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.builder import scale_camera
+    from raytracer_tpu_torch.debug import debug_cast
+    from raytracer_tpu_torch.render import engine as eng
+    from raytracer_tpu_torch.render.geometry import (camera_rays,
+                                                     expand_geometry)
+
+    big = SIZES[-1]
+    out = {"pixels": {}, "launches": {}}
+    cases = [("terrain8_mixed", WORLD_MIXED, ("bvh_cast",), True),
+             ("terrain8", WORLD, ("bvh_cast", "bvh_occlude2"), False)]
+    for name, path, used, bounces in cases:
+        w = rtt.generate(path)
+        scene = rtt.to_device(w.scene, dev)
+        cam = rtt.to_device(scale_camera(w.camera, big[0], w.config.width),
+                            dev)
+        cfg = w.config.replace(width=big[0], height=big[1], engine="cuda")
+        img = eng.render_frame(scene, cam, cfg).cpu().numpy()
+        lum = img[..., :3].max(-1)
+        if bounces:
+            img0 = eng.render_frame(scene, cam, cfg.replace(
+                recurse_depth=0)).cpu().numpy()
+            pixels = _probe_pixels(img, img0, big[1], big[0])
+        else:
+            hits = np.argwhere(lum > 0)
+            pixels = [hits[len(hits) // 2].tolist()]
+        geom = expand_geometry(scene)
+        cast = eng.make_cast(scene, geom, cfg)
+        ro, rd = camera_rays(cam, big[0], big[1])
+        with torch.no_grad():
+            frame_hits = cast(ro.reshape(-1, 3), rd.reshape(-1, 3))
+        for y, x in pixels:
+            label = f"probe {name} ({x}, {y})"
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                (recs, color), counts = _counted(
+                    label, lambda: debug_cast(scene, cam, cfg, x, y), used)
+            err = float(np.abs(color - img[y, x]).max())
+            if not np.allclose(color, img[y, x], rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"{label}: colour {color} against the "
+                                     f"frame's {img[y, x]}")
+            with torch.no_grad():
+                one = cast(ro[y, x][None].contiguous(),
+                           rd[y, x][None].contiguous())
+            i = y * big[0] + x
+            for field in ("valid", "t", "wtri", "uv", "normal", "mat"):
+                a = getattr(one, field)[0]
+                b = getattr(frame_hits, field)[i]
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: the 1-ray cast's {field} "
+                                         f"{a} differs from the frame "
+                                         f"batch's {b}")
+            lines = said.getvalue().splitlines()
+            levels = max(r["level"] for r in recs)
+            out["pixels"][label] = {"color": color.tolist(),
+                                    "frame": img[y, x].tolist(),
+                                    "max_abs_diff": err, "records": len(recs),
+                                    "deepest_level": levels,
+                                    "narration_lines": len(lines),
+                                    "launches": counts}
+            out["launches"][label] = counts
+            print(f"phase 32 {label} [{smi}]: colour == frame pixel (max abs "
+                  f"diff {err:.3g}; rtol/atol 1e-4), {len(recs)} rays to "
+                  f"level {levels}, {len(lines)} narration lines, launches "
+                  f"{counts}; the 1-ray cast == the frame batch's hit")
+        print(f"  last narration lines: {lines[-3:]}")
+    return out
+
+
+def _trace_device(path):
+    """Device busy ms, the traced span's ms and the kernels' names of a
+    Chrome trace written by ``tracing.profile_trace``."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if "dur" in e
+                  and "ts" in e]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    span_us = (max(e["ts"] + e["dur"] for e in events)
+               - min(e["ts"] for e in events))
+    return (sum(e["dur"] for e in device) / 1e3, span_us / 1e3,
+            {e["name"] for e in device if e.get("cat") == "kernel"})
+
+
+def _ops_cli(dev, smi, tmp):
+    """Phase 33: ``cli.main`` in this process: 2 training steps of terrain8
+    at 1920x1080 under ``--profile-dir`` (counters reset just before; the
+    trace must name K1's and K2's kernels; device busy ms and idle share
+    read from it), then one ``-b --wavefront-cap 0.5 -r`` bench of
+    terrain8_stress at 640x480.  Returns the numbers for the report."""
+    import contextlib
+    import io
+
+    from raytracer_tpu_torch import cli
+
+    big, main = SIZES[-1], SIZES[0]
+    prof_dir = os.path.join(tmp, "profile")
+    argv = ["-c", WORLD, "--width", str(big[0]), "--height", str(big[1]),
+            "--train", "2", "--checkpoint", os.path.join(tmp, "prof.npz"),
+            "--profile-dir", prof_dir]
+    t0 = time.perf_counter()
+    rc, counts = _counted("cli --profile-dir", lambda: cli.main(argv),
+                          ("bvh_cast", "bvh_occlude2"))
+    wall_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli --profile-dir returned {rc}")
+    (trace,) = os.listdir(prof_dir)
+    busy_ms, span_ms, names = _trace_device(os.path.join(prof_dir, trace))
+    for kernel in ("bvh_cast_kernel", "bvh_occlude2_kernel"):
+        if not any(kernel in n for n in names):
+            raise AssertionError(f"the trace names no {kernel}")
+    out = {"profile": {"launches": counts, "device_busy_ms": busy_ms,
+                       "traced_ms": span_ms,
+                       "idle_share": 1.0 - busy_ms / span_ms,
+                       "kernels_named": len(names), "wall_s": wall_s}}
+    print(f"phase 33 cli --train 2 --profile-dir, terrain8 {big[0]}x"
+          f"{big[1]} [{smi}]: launches {counts}; trace {trace}: "
+          f"{len(names)} kernel names (bvh_cast_kernel, "
+          f"bvh_occlude2_kernel among them), device busy {busy_ms:.3f} ms of "
+          f"{span_ms:.3f} ms traced (2 steps), idle share "
+          f"{out['profile']['idle_share']:.3f}")
+    argv = ["-c", WORLD_STRESS, "-b", "--wavefront-cap", "0.5", "-r",
+            "--width", str(main[0]), "--height", str(main[1])]
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc, counts = _counted("cli -b --wavefront-cap 0.5 -r",
+                              lambda: cli.main(argv),
+                              ("bvh_cast", "bvh_occlude2"))
+    lines = said.getvalue().splitlines()
+    times = [line for line in lines if line.startswith("Time:")]
+    if rc != 0 or len(times) != 1:
+        raise AssertionError(f"cli -b returned {rc}: {lines}")
+    bench = json.loads(lines[-1])
+    out["bench"] = {"launches": counts, "frame_ms": bench["value"],
+                    "line": times[0]}
+    print(f"phase 33 cli -b --wavefront-cap 0.5 -r, terrain8_stress "
+          f"{main[0]}x{main[1]} [{smi}]: {times[0]} (one frame after a "
+          f"warm-up, CUDA events); launches {counts}")
+    return out
+
+
+def _elastic(dev, smi, tmp):
+    """Phase 34: ``cli.main --elastic 1 --train-until 3 --checkpoint-every
+    1`` on terrain8 at 640x480 with ``RT_FAULT_AT_STEP=2``: the worker
+    (a process of its own on the card) crashes with code 13 after step 2,
+    the supervisor restarts it from the checkpoint, and the final
+    checkpoint matches an uninterrupted run in this process at rtol 1e-4 /
+    atol 1e-6 (the backward's index_add_ adds with atomics on the card).
+    Returns the numbers for the report."""
+    import contextlib
+    import io
+
+    from raytracer_tpu_torch import cli
+
+    main = SIZES[0]
+    t0 = time.perf_counter()
+    base = ["-c", WORLD, "--width", str(main[0]), "--height", str(main[1]),
+            "--checkpoint-every", "1", "--train-until", "3"]
+    clean = os.path.join(tmp, "clean.npz")
+    elastic = os.path.join(tmp, "elastic.npz")
+    if cli.main(base + ["--checkpoint", clean]) != 0:
+        raise AssertionError("the uninterrupted run failed")
+    fault = {"RT_FAULT_AT_STEP": "2",
+             "RT_FAULT_MARKER": os.path.join(tmp, "crashed.marker")}
+    os.environ.update(fault)
+    said = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(said):
+            rc = cli.main(base + ["--checkpoint", elastic, "--elastic", "1",
+                                  "--hang-timeout", "120"])
+    finally:
+        for k in fault:
+            del os.environ[k]
+    err = said.getvalue()
+    for needed in ('"fault_injected"', "crash rc=13", '"elastic_restart"',
+                   '"checkpoint_restored"', '"elastic_done"'):
+        if needed not in err:
+            raise AssertionError(f"elastic run: no {needed} in its log")
+    if rc != 0:
+        raise AssertionError(f"elastic run returned {rc}")
+    with np.load(clean) as a, np.load(elastic) as b:
+        if int(a["__step__"]) != 3 or int(b["__step__"]) != 3:
+            raise AssertionError("a checkpoint did not reach step 3")
+        keys = sorted(k for k in a.files if k.startswith("arr_"))
+        if keys != sorted(k for k in b.files if k.startswith("arr_")):
+            raise AssertionError("the checkpoints hold other leaves")
+        diff = 0.0
+        for k in keys:
+            np.testing.assert_allclose(b[k], a[k], rtol=RTOL_GRAD,
+                                       atol=ATOL_GRAD, err_msg=k)
+            diff = max(diff, float(np.abs(b[k] - a[k]).max()))
+    seconds = time.perf_counter() - t0
+    print(f"phase 34 elastic terrain8 {main[0]}x{main[1]} [{smi}]: crash "
+          f"rc=13 after step 2, restarted, final checkpoint == the "
+          f"uninterrupted run's (max abs diff {diff:.3g}; rtol {RTOL_GRAD} "
+          f"atol {ATOL_GRAD}); {seconds:.1f} s")
+    return {"max_abs_diff": diff, "seconds": seconds,
+            "log_lines": len(err.splitlines())}
 
 
 def main(argv=None) -> int:
@@ -2864,6 +3303,25 @@ def main(argv=None) -> int:
     report["dist"] = _dist(dev, smi)
     report["dist"]["seconds"] = time.perf_counter() - t_d
     print(f"dist phases: {report['dist']['seconds']:.1f} s")
+    # ---- phases 31-34: the ops surface --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, run in (("texture", lambda: _texture(dev, smi)),
+                         ("probe", lambda: _probe(dev, smi)),
+                         ("cli", lambda: _ops_cli(dev, smi, tmp)),
+                         ("elastic", lambda: _elastic(dev, smi, tmp))):
+            t_o = time.perf_counter()
+            report[key] = run()
+            report[key]["phase_seconds"] = time.perf_counter() - t_o
+            print(f"{key} phase: {report[key]['phase_seconds']:.1f} s")
+    texture_launches, ops_launches = {}, {}
+    for into, paths in ((texture_launches, report["texture"]["launches"]),
+                        (ops_launches, {**report["probe"]["launches"],
+                                        **{f"cli {k}": v["launches"]
+                                           for k, v in report["cli"].items()
+                                           if isinstance(v, dict)}})):
+        for label, counts in paths.items():
+            for name, n in counts.items():
+                into.setdefault(name, {})[label] = n
     dist_launches = {}
     for label, counts in report["dist"]["dist_launches"].items():
         for name, n in counts.items():
@@ -2915,7 +3373,9 @@ def main(argv=None) -> int:
          "bound_by": bounds[name]["bound_by"], "library_ms": None,
          "device_ms": timing[main_key][f"{key}_device_ms"],
          "spp_launches": spp_launches.get(name, {}),
-         "dist_launches": dist_launches.get(name, {})}
+         "dist_launches": dist_launches.get(name, {}),
+         "texture_launches": texture_launches.get(name, {}),
+         "ops_launches": ops_launches.get(name, {})}
         for name, source, replaces, key in rows]}
     report["kernels"] = kernels_line["kernels"]
     report["seconds"] = time.perf_counter() - t_start

@@ -1,23 +1,35 @@
 """Command-line interface of the port (counterpart of ``raytracer_tpu/cli.py``:
-rendering, benchmarking and training).
+rendering, benchmarking, the debug probe and training).
 
     python -m raytracer_tpu_torch.cli -c WORLD.json [-o out.png]
     python -m raytracer_tpu_torch.cli -c WORLD.json -b [--repeats N]
+    python -m raytracer_tpu_torch.cli -c WORLD.json --debug-pixel X Y
     python -m raytracer_tpu_torch.cli -c WORLD.json --train N [--checkpoint P]
+    python -m raytracer_tpu_torch.cli -c WORLD.json --train-until N \
+        --elastic R [--hang-timeout S]
 
 Flags: ``-c/--config`` world JSON, ``-o/--out`` PNG path, ``-b/--bench``
 time frames (prints ``Time: <ms>`` and one JSON line), ``--repeats``,
 ``--width``/``--height`` canvas overrides (the field of view is kept),
 ``-d/--dim`` the candidate-list cull's tile (``tile_rows = max(8,
 ceil8(d*d/128))``; the LBVH walk and the MXU cast do not read it),
-``-s/--reference-impl`` the plain-PyTorch ``"torch"`` engine instead of the
-CUDA kernels, ``--device`` (default ``cuda``; there is no fallback to the
-CPU when CUDA is missing).  Training: ``--train N`` / ``--train-until
-TOTAL`` SGD steps on materials and lights toward ``--target-png`` (or the
-scene rendered with ``kd * 1.3``), ``--lr``, ``--checkpoint`` (resumed when
-it exists) written every ``--checkpoint-every`` steps; one ``train_step``
-JSON line per step on stderr.  ``--elastic``, ``--hang-timeout`` and
-``--profile-dir`` are not ported and raise.
+``-r/--no-bvh`` sets ``use_bvh=False``, which neither engine of the port
+reads (as the JAX package's accelerator engine does not),
+``--wavefront-cap FRAC`` the tile-compacted rounds
+(``wavefront_tile_cap``), ``-s/--reference-impl`` the plain-PyTorch
+``"torch"`` engine instead of the CUDA kernels, ``--device`` (default
+``cuda``; there is no fallback to the CPU when CUDA is missing),
+``--debug-pixel X Y`` the single-ray probe (``debug.debug_cast``).
+Training: ``--train N`` / ``--train-until TOTAL`` SGD steps on materials
+and lights toward ``--target-png`` (or the scene rendered with ``kd *
+1.3``), ``--lr``, ``--checkpoint`` (resumed when it exists) written every
+``--checkpoint-every`` steps; one ``train_step`` JSON line per step on
+stderr; ``--profile-dir`` traces the loop (``tracing.profile_trace``);
+``--elastic R`` runs the loop in a supervised worker process restarted up
+to R times on a crash or a ``--hang-timeout`` silence (``elastic.py``).
+For the elastic tests, ``RT_FAULT_AT_STEP`` / ``RT_HANG_AT_STEP`` make the
+worker exit with code 13 / sleep after that step, once: the file named by
+``RT_FAULT_MARKER`` records that the fault happened.
 """
 
 from __future__ import annotations
@@ -34,6 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="Cube-world ray tracer: PyTorch with CUDA kernels.")
     p.add_argument("-c", "--config", required=True, help="world config (json)")
     p.add_argument("-b", "--bench", action="store_true", help="benchmark mode")
+    p.add_argument("-r", "--no-bvh", action="store_true",
+                   help="set use_bvh=False (the reference's brute-force "
+                        "flag); both of this port's engines ignore it, as "
+                        "the JAX package's accelerator engine does")
     p.add_argument("-s", "--reference-impl", action="store_true",
                    help="use the plain-PyTorch engine (engine='torch')")
     p.add_argument(
@@ -46,7 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override canvas width")
     p.add_argument("--height", type=int, default=None,
                    help="override canvas height")
+    p.add_argument("--debug-pixel", nargs=2, type=int, metavar=("X", "Y"),
+                   help="trace one pixel verbosely (single-ray probe)")
     p.add_argument("--repeats", type=int, default=1, help="bench repetitions")
+    p.add_argument(
+        "--wavefront-cap", type=float, default=0.0, metavar="FRAC",
+        help="tile-compacted queue discipline: run the shading, shadow and "
+             "bounce rounds on only the FRAC*T ray tiles that hold a primary "
+             "hit (hits beyond the cap are dropped and counted); 0 = dense "
+             "rounds")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.add_argument("--train", type=int, default=0, metavar="N",
@@ -63,8 +87,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=10,
                    help="save the --train checkpoint every K steps")
     p.add_argument("--lr", type=float, default=0.05, help="--train SGD rate")
-    for flag in _UNPORTED:
-        p.add_argument(flag, default=None, help="not ported (raises)")
+    p.add_argument(
+        "--elastic", type=int, default=0, metavar="MAX_RESTARTS",
+        help="run --train under the elastic supervisor: the loop runs in a "
+             "worker process whose train_step heartbeat is watched; on a "
+             "crash or a hang the worker is killed (by its exact PID) and "
+             "relaunched from the last checkpoint, up to MAX_RESTARTS times "
+             "(use with --train-until for an absolute target)")
+    p.add_argument(
+        "--hang-timeout", type=float, default=300.0, metavar="S",
+        help="--elastic: restart the worker if no heartbeat for S seconds")
+    p.add_argument("--profile-dir", default=None,
+                   help="trace the --train loop with torch.profiler and "
+                        "write a Chrome trace to this directory")
     return p
 
 
@@ -72,18 +107,6 @@ def tile_rows_for_dim(dim: int) -> int:
     """``-d``: ``max(8, ceil8(dim * dim / 128))`` tile rows, as
     ``raytracer_tpu/cli.py`` maps it."""
     return max(8, (dim * dim // 128 + 7) // 8 * 8)
-
-
-# supervised restarts and device traces: ROADMAP.md Queue 1 item 9
-_UNPORTED = ("--elastic", "--hang-timeout", "--profile-dir")
-
-
-def _check_unported(args) -> None:
-    for flag in _UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported (ROADMAP.md Queue 1 item 9: the ops "
-                "surface, elastic training and tracing)")
 
 
 def _device(name: str):
@@ -99,7 +122,13 @@ def _device(name: str):
 def _train(args, scene, camera, cfg) -> int:
     """Fit the materials and lights to a target image by SGD, logging one
     ``train_step`` line per step and checkpointing every K steps
-    (``raytracer_tpu/cli.py:139-226`` without its fault injection)."""
+    (``raytracer_tpu/cli.py`` ``_train``), under ``profile_trace`` with
+    ``--profile-dir``.  The one-shot fault injection of the elastic tests
+    crashes (exit code 13) or hangs the worker right after the step
+    ``RT_FAULT_AT_STEP`` / ``RT_HANG_AT_STEP``, unless the file
+    ``RT_FAULT_MARKER`` exists; it creates that file first, so that the
+    restarted worker runs on."""
+    import contextlib
     import dataclasses
     import os
 
@@ -140,24 +169,63 @@ def _train(args, scene, camera, cfg) -> int:
         print(f"already trained to step {start} (target {end}); nothing to do")
         return 0
 
+    fault_at = int(os.environ.get("RT_FAULT_AT_STEP", "0") or 0)
+    hang_at = int(os.environ.get("RT_HANG_AT_STEP", "0") or 0)
+    marker = os.environ.get("RT_FAULT_MARKER", "")
+
     stats = tracing.FrameStats(width=cfg.width, height=cfg.height,
                                spp=cfg.spp)
-    for step in range(start, end):
-        with stats:
-            value, _, params = diff.train_step(scene, camera, cfg, target,
-                                               params, lr=args.lr)
-            value = float(value)
-        tracing.log("train_step", step=step, loss=value)
-        if (step + 1) % args.checkpoint_every == 0 or step + 1 == end:
-            checkpoint.save(args.checkpoint, params, step=step + 1)
+    with (tracing.profile_trace(args.profile_dir) if args.profile_dir
+          else contextlib.nullcontext()):
+        for step in range(start, end):
+            with stats:
+                value, _, params = diff.train_step(scene, camera, cfg, target,
+                                                   params, lr=args.lr)
+                value = float(value)
+            tracing.log("train_step", step=step, loss=value)
+            if (step + 1) % args.checkpoint_every == 0 or step + 1 == end:
+                checkpoint.save(args.checkpoint, params, step=step + 1)
+            if (marker and step + 1 in (fault_at, hang_at)
+                    and not os.path.exists(marker)):
+                open(marker, "w").close()
+                if step + 1 == fault_at:
+                    tracing.log("fault_injected", kind="crash", step=step + 1)
+                    os._exit(13)  # a preempted or killed worker
+                tracing.log("fault_injected", kind="hang", step=step + 1)
+                time.sleep(3600)  # a wedged worker
     print(f"trained {end - start} steps; final loss {value:.6f}; "
           f"checkpoint -> {args.checkpoint}")
     return 0
 
 
+def _strip_elastic_flags(argv):
+    """The worker's argv: ``argv`` without the supervisor's own flags."""
+    out = []
+    skip = False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--elastic", "--hang-timeout"):
+            skip = True
+            continue
+        if a.startswith("--elastic=") or a.startswith("--hang-timeout="):
+            continue
+        out.append(a)
+    return out
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_unported(args)
+    if args.elastic > 0 and (args.train or args.train_until):
+        from .elastic import run_supervised
+
+        worker_argv = _strip_elastic_flags(
+            list(argv) if argv is not None else sys.argv[1:])
+        res = run_supervised(worker_argv, max_restarts=args.elastic,
+                             hang_timeout_s=args.hang_timeout)
+        return 0 if res.completed else 1
+
     import torch
 
     from . import generate, to_device
@@ -176,11 +244,20 @@ def main(argv=None) -> int:
         cfg = cfg.replace(height=args.height)
     if args.dim is not None:
         cfg = cfg.replace(tile_rows=tile_rows_for_dim(args.dim))
-    cfg = cfg.replace(engine="torch" if args.reference_impl else "cuda")
+    cfg = cfg.replace(engine="torch" if args.reference_impl else "cuda",
+                      use_bvh=not args.no_bvh,
+                      wavefront_tile_cap=args.wavefront_cap)
     scene = to_device(world.scene, dev)
     camera = to_device(camera, dev)
     print(f"Loaded scene: {args.config} ({cfg.width}x{cfg.height}, "
           f"engine={cfg.engine}, device={dev})")
+
+    if args.debug_pixel:
+        from .debug import debug_cast
+
+        x, y = args.debug_pixel
+        debug_cast(scene, camera, cfg, x, y)
+        return 0
 
     if args.train or args.train_until:
         return _train(args, scene, camera, cfg)

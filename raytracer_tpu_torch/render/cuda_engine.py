@@ -202,14 +202,18 @@ def _detect_box_meshes(scene: Scene, mesh_min: torch.Tensor,
 
 def build_tables(scene: Scene, geom: WorldGeometry, *,
                  exact_uv: bool = False,
+                 texture_mapping: bool = False,
                  box_exact_uv: bool = False) -> SceneTables:
     """The kernels' instance and template tables (``pallas_engine.
     build_tables``).  ``exact_uv=True`` without ``box_exact_uv`` zeroes
     ``is_box`` so every instance takes the template loop; with
     ``box_exact_uv`` the box fast path stays, and the kernels' ``exact_uv``
     branch resolves the hit face's triangle from the ``_II_FACE_WTRI`` /
-    ``_II_FACE_WTRI2`` columns (filled either way).  The JAX package's
-    ``texture_mapping`` variant is not ported."""
+    ``_II_FACE_WTRI2`` columns (filled either way).  Otherwise
+    ``texture_mapping=True`` takes ``is_box`` from every box mesh with a
+    textured triangle: the fast path reports a fixed uv, and the atlas
+    needs the template loop's true barycentrics; untextured box meshes
+    keep it."""
     n = scene.inst_pos.shape[0]
     dev = scene.inst_pos.device
     i32 = torch.int32
@@ -246,6 +250,14 @@ def build_tables(scene: Scene, geom: WorldGeometry, *,
         scene, mesh_min, mesh_max)
     if exact_uv and not box_exact_uv:
         is_box_m = torch.zeros_like(is_box_m)
+    elif texture_mapping:
+        rows = torch.arange(scene.tri_v.shape[0], device=dev)
+        starts = scene.mesh_tri_start
+        ends = starts + scene.mesh_tri_count
+        in_mesh = ((rows[None, :] >= starts[:, None])
+                   & (rows[None, :] < ends[:, None]))
+        any_tex = (in_mesh & ~scene.tri_coord_degenerate[None, :]).any(dim=1)
+        is_box_m = is_box_m & ~any_tex
     ident_rot = ((torch.abs(q[:, 0]) < 1e-6) & (torch.abs(q[:, 1]) < 1e-6)
                  & (torch.abs(q[:, 2]) < 1e-6))
     inst_i32[:, _II_IS_BOX] = (is_box_m[mesh] & ident_rot).to(i32)
@@ -294,7 +306,8 @@ def _use_walk(cfg: RenderConfig, n_inst: int) -> bool:
 def prepare_cast(scene: Scene, geom: WorldGeometry,
                  cfg: RenderConfig) -> CastData:
     """The scalar kernels' run-time data (``prepare_pallas_cast``): the
-    tables (with ``box_exact_uv`` under ``edge_aware_grads``), plus the LBVH
+    tables (with ``box_exact_uv`` under ``edge_aware_grads``; textured box
+    meshes on the template loop under ``texture_mapping``), plus the LBVH
     nodes when ``_use_walk`` picks the walk (the cull reads the tables
     only).  Runs under ``no_grad``, the counterpart of the
     JAX package's ``stop_gradient(scene)``: the tables are written in place
@@ -303,12 +316,9 @@ def prepare_cast(scene: Scene, geom: WorldGeometry,
     if cfg.pallas_kernel != "scalar":
         raise ValueError(f"prepare_cast builds the scalar kernels' data, not "
                          f"pallas_kernel={cfg.pallas_kernel!r}")
-    if cfg.texture_mapping:
-        raise NotImplementedError(
-            "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
-            "ops surface and atlas sampling)")
     tables = build_tables(scene, geom, exact_uv=cfg.edge_aware_grads,
-                          box_exact_uv=cfg.edge_aware_grads)
+                          box_exact_uv=cfg.edge_aware_grads,
+                          texture_mapping=cfg.texture_mapping)
     if not _use_walk(cfg, scene.inst_pos.shape[0]):
         return CastData(tables=tables)
     lbvh = build_lbvh(geom.aabb_min, geom.aabb_max)

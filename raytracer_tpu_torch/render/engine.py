@@ -66,15 +66,6 @@ BLOCK = 32  # screen-space tile edge: one 32x32 block of rays
 TILE_LANES = 1024
 
 
-def check_config(scene: Scene, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for any setting
-    the port does not cover yet (never a silent switch of path)."""
-    if cfg.texture_mapping:
-        raise NotImplementedError(
-            "texture_mapping is not ported (ROADMAP.md Queue 1 item 9: the "
-            "ops surface and atlas sampling)")
-
-
 def trans_attenuation(kt, time):
     """``time^Kt`` per channel (reference ``src/rayenv/scene.cu:14-22``):
     the base is the segment's *time*, not Kt, as the reference has it.
@@ -390,7 +381,6 @@ def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
     """Radiance of a ray batch, clamped to <= 1 like the canvas write.
     Returns ``(img, dropped)``: a nonzero ``dropped`` means a queue or tile
     cap deleted radiance."""
-    check_config(scene, cfg)
     acc, dropped = radiance(scene, geom, cast_fn, cfg, ray_o.reshape(-1, 3),
                             ray_d.reshape(-1, 3), pixel_angle)
     return clamp_frame(acc).reshape(ray_o.shape[:-1] + (4,)), dropped

@@ -12,7 +12,9 @@ With a refractive material the shadow ray marches (``_march_shadow``,
 reference light.cu:30-61): each step takes the closest hit (K1, K4 or K6);
 an opaque blocker before the light kills it, a transmissive one passes it
 on, attenuated by ``Kt^segment`` where the ray leaves the blocker
-(``n.d > 0``), for at most ``shadow_steps`` steps.
+(``n.d > 0``), for at most ``shadow_steps`` steps.  With
+``texture_mapping`` the nearest atlas texel (``sample_atlas``) replaces
+``Kd`` on textured triangles.
 
 Where the JAX package takes ``jnp.maximum``/``jnp.minimum`` against a
 constant, this module takes ``torch.maximum``/``torch.minimum`` against a
@@ -174,12 +176,31 @@ def distance_attenuation(scene: Scene, dist):
                        1.0 / torch.maximum(quad, quad.new_ones(())))
 
 
-def phong_term(rmats: Materials, incoming, ray_dir, dir_to_light, normal):
+def sample_atlas(scene: Scene, hit: Hit):
+    """The nearest atlas texel of each hit and whether its triangle is
+    untextured (``shading.sample_atlas``): the triangle's atlas rect
+    ``(x, y, w, h)`` and the hit's barycentric ``uv`` give the texel
+    ``rect.xy + uv * rect.wh``, truncated toward zero and clamped to the
+    atlas.  Returns ``(texel [..., 4], degenerate [...])``."""
+    tri = scene.wtri_tri[hit.wtri.long()].long()
+    rect = scene.tri_coord_rect[tri]  # [..., 4]
+    h, w = scene.atlas.shape[0], scene.atlas.shape[1]
+    px = torch.clamp((rect[..., 0] + hit.uv[..., 0] * rect[..., 2]).to(
+        torch.int32), 0, w - 1)
+    py = torch.clamp((rect[..., 1] + hit.uv[..., 1] * rect[..., 3]).to(
+        torch.int32), 0, h - 1)
+    return scene.atlas[py.long(), px.long()], scene.tri_coord_degenerate[tri]
+
+
+def phong_term(rmats: Materials, incoming, ray_dir, dir_to_light, normal,
+               kd_override=None):
     """One light's Phong contribution (reference phong.cu:14-33):
     ``(max(L.N, 0) Kd + max(-reflect(-L, N).V, 0)^alpha Ks) * incoming``,
-    with ``0^0 = 1`` for ``alpha = 0``."""
+    with ``0^0 = 1`` for ``alpha = 0``; ``kd_override`` (the sampled
+    texture) takes the place of ``Kd``."""
+    kd = rmats.kd if kd_override is None else kd_override
     norm_dot = _relu(rm.dot(dir_to_light, normal))
-    diffuse = norm_dot[..., None] * rmats.kd
+    diffuse = norm_dot[..., None] * kd
     reflected = rm.reflect(-dir_to_light, normal)
     reflect_dot = rm.dot(-reflected, ray_dir)
     spec = rm.safe_pow(_relu(reflect_dot), rmats.alpha)[..., None] * rmats.ks
@@ -303,10 +324,16 @@ def illuminate(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
                rmats: Materials, active):
     """Local shading at a hit point (reference phong.cu:40-67): the fused
     two-light round when it applies, else one shadow query or march per
-    light."""
+    light.  With ``texture_mapping`` a textured triangle's atlas texel
+    replaces ``Kd`` in every light's term (the texel takes no gradient;
+    ``Kd`` keeps its gradient on untextured triangles only)."""
     hit_pos = ray_o + hit.t[..., None] * ray_d
     col = rmats.ke + rmats.ka * scene.ambience
     lights = scene.lights
+    kd = None
+    if cfg.texture_mapping:
+        tex, degenerate = sample_atlas(scene, hit)
+        kd = torch.where(degenerate[..., None], rmats.kd, tex)
 
     if _use_fused(scene, cfg, cast_fn):
         o1, dir1, dist, o2, dir2 = shadow_rays(scene, hit_pos, active)
@@ -318,9 +345,11 @@ def illuminate(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
         zero = hit_pos.new_zeros(())
         incoming1 = datten[..., None] * torch.where(b1[..., None], zero,
                                                     lights.point_col[0])
-        col = col + phong_term(rmats, incoming1, ray_d, dir1, normal)
+        col = col + phong_term(rmats, incoming1, ray_d, dir1, normal,
+                               kd)
         incoming2 = torch.where(b2[..., None], zero, lights.dir_col[0])
-        col = col + phong_term(rmats, incoming2, ray_d, dir_to_light2, normal)
+        col = col + phong_term(rmats, incoming2, ray_d, dir_to_light2,
+                               normal, kd)
         return col
 
     for i in range(lights.point_pos.shape[0]):
@@ -330,11 +359,13 @@ def illuminate(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
         incoming = distance_attenuation(scene, dist)[..., None] * _shadowed(
             scene, geom, cast_fn, cfg, hit_pos, dir_to_light, dist,
             lights.point_col[i], active)
-        col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal)
+        col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal,
+                               kd)
     for i in range(lights.dir_dir.shape[0]):
         dir_to_light = -lights.dir_dir[i]  # raw (reference light.cu:74-77)
         incoming = _shadowed(scene, geom, cast_fn, cfg, hit_pos,
                              rm.normalize(dir_to_light), float("inf"),
                              lights.dir_col[i], active)
-        col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal)
+        col = col + phong_term(rmats, incoming, ray_d, dir_to_light, normal,
+                               kd)
     return col

@@ -7,9 +7,9 @@
 directional light, K3).  The ``"cuda"`` engine on CPU tensors goes through
 the kernel wrappers, which take the plain versions there, and must give the
 same frame; the per-light frame must equal the fused one bit for bit.  Also
-the frame plumbing (block order, u8 conversion), the CLI, the settings the
-port does not cover yet (they raise, never switch path) and those that a
-later slice ported (bounce rounds, tile caps: the JAX frame)."""
+the frame plumbing (block order, u8 conversion), the CLI, and the settings
+that later slices ported (bounce rounds, tile caps, texture mapping: the
+JAX frame)."""
 
 import os
 
@@ -144,11 +144,13 @@ def _material_world(tmp_path, change):
     "traversal_cull", "kernel_mxu", "edge_aware", "spp", "tile_cap",
     "texture", "reflective", "refractive", "vertex grads"])
 def test_unported_settings_raise(frames, tmp_path, change):
-    """Settings the port does not cover raise, naming the ROADMAP item:
-    texture mapping (item 9).  The rest are ported and render: the cull
+    """Every setting is ported (none raises any more) and renders: the cull
     and the MXU kernel give terrain8's frame (equal to the LBVH walk's); so
     do edge-aware gradients, on every cast (the frame unchanged), and
-    vertex parameters train.  A reflective world (the pixel-aligned bounce
+    vertex parameters train.  Texture mapping on terrain8, whose triangles
+    are all untextured, gives the JAX package's frame and, on the walk and
+    the MXU cast, the frame without it bit for bit (textured worlds:
+    ``test_torch_texture.py``).  A reflective world (the pixel-aligned bounce
     stream), a refractive one (the aligned stream with the transmissive
     shadow march), a wavefront tile cap and spp = 4 give the JAX package's
     frame at 64x48; ``static_tile_cap`` at spp = 1 leaves the frame as it
@@ -196,17 +198,22 @@ def test_unported_settings_raise(frames, tmp_path, change):
             scene, cam, ported.replace(edge_aware_grads=True)), img)
         return
     elif change == "texture":
-        cfg = cfg.replace(texture_mapping=True)
+        # every triangle of terrain8 is untextured: Kd stays, on the walk
+        # and on the MXU cast (its uv from the resolve step)
+        img = render_frame(scene, cam, frames["cfg"].replace(
+            engine="cuda", texture_mapping=True))
+        np.testing.assert_allclose(img.numpy(), frames["jimg"], rtol=0,
+                                   atol=1e-5)
+        for ported in (cfg, cfg.replace(pallas_kernel="mxu")):
+            assert torch.equal(
+                render_frame(scene, cam, ported.replace(texture_mapping=True)),
+                render_frame(scene, cam, ported))
+        return
     elif change == "vertex grads":
         params = diff.trainable_params(scene, cam, include_vertices=True)
         assert torch.equal(params["verts"], scene.verts)
         assert params["verts"].requires_grad and params["verts"].is_leaf
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(scene, cam, cfg)
-    if change == "texture":  # on the MXU cast too, whose tables ignore it
-        with pytest.raises(NotImplementedError, match="item 9"):
-            render_frame(scene, cam, cfg.replace(pallas_kernel="mxu"))
 
 
 def test_cli_writes_png_on_cpu(tmp_path, capsys):

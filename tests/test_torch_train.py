@@ -343,11 +343,13 @@ def test_cli_trains_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["elastic", "profile_dir", "spp_grad",
                                   "profile_trace"])
-def test_unported_training_surface_raises(small, what):
-    """The elastic supervisor and device traces raise, naming the ROADMAP
-    item; the spp step is ported: one whole step at spp 2 gives
-    ``make_loss_fn``'s loss and gradients at ``spp=2`` bit for bit (the
-    same samples summed in the same order)."""
+def test_unported_training_surface_raises(small, tmp_path, capsys, what):
+    """The training surface that once raised is ported, each part checked
+    by its result: ``--elastic`` trains to its target in a supervised
+    worker, ``--profile-dir`` writes a trace of the loop,
+    ``profile_trace`` a trace of its block; and one whole step at spp 2
+    gives ``make_loss_fn``'s loss and gradients at ``spp=2`` bit for bit
+    (the same samples summed in the same order)."""
     if what == "spp_grad":
         scene, cam, cfg = small
         params = diff.trainable_params(scene, cam)
@@ -362,10 +364,25 @@ def test_unported_training_surface_raises(small, what):
             assert torch.equal(a, b)
         assert float(grads["cam_pos"].abs().max()) > 0.0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "elastic":
-            cli.main(["-c", TERRAIN8, "--train", "1", "--elastic", "2"])
-        elif what == "profile_dir":
-            cli.main(["-c", TERRAIN8, "--profile-dir", "trace"])
-        else:
-            tracing.profile_trace()
+    logdir = str(tmp_path / "trace")
+    ck = str(tmp_path / "ck.npz")
+    base = ["-c", TERRAIN8, "--width", "24", "--height", "16", "--device",
+            "cpu", "--checkpoint", ck]
+    if what == "elastic":
+        assert cli.main(base + ["--train-until", "1", "--elastic", "2"]) == 0
+        assert '"elastic_done"' in capsys.readouterr().err
+        with np.load(ck) as data:
+            assert int(data["__step__"]) == 1
+        return
+    if what == "profile_dir":
+        assert cli.main(base + ["--train", "1", "--profile-dir",
+                                logdir]) == 0
+    else:
+        with tracing.profile_trace(logdir) as got:
+            assert got == logdir
+            torch.ones(4).sum()
+    (trace,) = os.listdir(logdir)
+    with open(os.path.join(logdir, trace)) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert "aten::sum" in names
+    assert '"profile_trace_written"' in capsys.readouterr().err

@@ -20,11 +20,13 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
 5. render_frame with engine="cuda" at 640x480 and 1920x1080 with the launch
    counters reset just before, compared with engine="torch" on the card;
    then timings with CUDA events: median frame ms of the cuda engine (the
-   torch engine's once), and per-launch ms of each kernel against its
-   plain version (median of 3);
+   torch engine's once: its call of the comparison), and per-launch ms of
+   each kernel against its plain version (once: its call in phases 3-4);
 6. K3 (single shadow query) against its plain version on each query of
-   phase 4's inputs, both table kinds; its masks must also equal each
-   query of K2;
+   phase 4's inputs, both table kinds (the plain masks are phase 4's:
+   bvh_occlude2_reference is bvh_occlude_reference of each of its queries,
+   which is checked here on the 640x480 frame's queries); its masks must
+   also equal each query of K2;
 7. per-light frames at 640x480 with the K3 counter reset just before:
    terrain8 with fused_shadows=False must equal the fused frame bit for
    bit, and terrain8_lights3 (2 point + 1 directional light) from the
@@ -79,7 +81,7 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    and vertices; terrain8 on the walk, terrain6 on the cull and on the MXU
    cast), each with the launch counters reset just before: grads equal to
    the "torch" engine's at rtol 1e-4 / atol 1e-6 (verts: 1e-6 max|g|),
-   step ms and Mrays/s (median of 5), and the backward's top device
+   step ms and Mrays/s (median of 3), and the backward's top device
    kernels (torch.profiler); then the new instantiations' timings and
    bounds (the exact_uv branch's work counted by the plain versions: the
    box updates it runs on, ``work`` column ``exact``).
@@ -92,7 +94,7 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    (atol 1e-5), K1 on each later round's rays and K2 on each round's
    shadow queries identical to their plain versions, and the per-light
    frame (fused_shadows=False, K3) equal to the fused one bit for bit;
-   frame ms (median of 10), device busy, idle share and kernels per frame
+   frame ms (median of 5), device busy, idle share and kernels per frame
    at both sizes (torch.profiler, 3 frames);
 20. terrain8_mixed (760 instances: a reflective and a refractive type:
    the compacted 2x stream and the transmissive shadow march through K1)
@@ -102,7 +104,7 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    two steps of the point light's march;
 21. the 1080p fwd+bwd step on both (materials with kr, kt and eta,
    lights, camera; zero target), counters reset just before: grads equal
-   to the "torch" engine's at rtol 1e-4 / atol 1e-6, step ms (median of 5)
+   to the "torch" engine's at rtol 1e-4 / atol 1e-6, step ms (median of 3)
    and Mrays/s;
 22. the synthetic worlds (raytracer_tpu_torch/synth.py) at 128x96: the
    mixed world on the cull (K4 alone: rounds and march), its frame against
@@ -137,10 +139,10 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    terrain8 1024x1024 spp 16 (a frame), terrain8_stress 1920x1080 spp 128
    (fwd+bwd of materials, lights and camera, spp_chunk None) and the same
    with vertices and edge-aware grads: one warm step, then 1 timed (CUDA
-   events), Mrays/s = W*H*spp / ms / 1e3, dropped
-   (must be 0), peak memory over what was allocated before the step
-   (within 1.25x of the same step's at spp 8), and
-   the idle share and top kernels of one profiled step at spp 8;
+   events), Mrays/s = W*H*spp / ms / 1e3, dropped (must be 0), peak
+   memory over what was allocated before the step (within 1.25x of the
+   same step's at spp 8), and the idle share and top kernels of one
+   profiled step at spp 8;
 27-30. the distribution layer (raytracer_tpu_torch/dist.py), its ranks
    launched by dist.launch as processes that share the one card over gloo
    (NCCL takes one rank a card; a one-rank NCCL group runs its all_reduce
@@ -175,9 +177,11 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    frame equal to the "torch" engine's (atol 1e-5) and unlike the
    untextured one, the textured type off the box fast path, K1/K2, K4/K5
    and K6 identical to their plain versions on the frame's primary rays
-   and its shadow queries (K6: the shadow rays' closest hits); the 1080p
+   and its shadow queries (K6: the shadow rays' closest hits; the plain
+   answers are the "torch" frame's own where their inputs are equal,
+   ``_KeptCast``, as in phases 35-36); the 1080p
    fwd+bwd step of textured terrain8 against the "torch" engine (rtol
-   1e-4 / atol 1e-6); frame ms (median of 10) beside the untextured
+   1e-4 / atol 1e-6); frame ms (median of 5) beside the untextured
    frame's, and K1's ms per launch and device ms on the template path
    beside the box path's (and both bounds at 640x480);
 32. the debug probe (raytracer_tpu_torch/debug.py) on the 1080p
@@ -195,6 +199,31 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    exits 13 after step 2 and is restarted from its checkpoint): exit 0,
    ``crash rc=13`` logged, the final checkpoint equal to an uninterrupted
    run's at rtol 1e-4 / atol 1e-6; the phase's seconds.
+35-37. the fly-through, the interactive loop, the viewer, the native library:
+35. ``python -m raytracer_tpu_torch.cli --orbit 30`` on terrain8 at
+   1920x1080, a process of its own: 30 PNGs, its FPS lines, its last frame
+   equal to this process's render of the same camera; camera_motion's
+   orbit on the card: frames 0 and 29 at 640x480 against the "torch"
+   engine (atol 1e-5), K1 and K2 identical to their plain versions on frame
+   29's primary rays and shadow queries; cli.main --orbit 30 at 640x480
+   with the counters reset just before (one K1 and one K2 a frame), and
+   --orbit 10 on terrain8_lights3 (K1, K3; its last frame against the
+   "torch" engine, K3 against its plain version); FPS at both sizes, and
+   per frame the render (CUDA events), the u8 copy to the host and
+   write_png (host clock);
+36. cli.main --interactive on terrain6 at 640x480 (K4, K5), stdin ``w``,
+   ``a``, ``mouse 5 -3``, ``click 320 240`` (sky), ``click 320 360`` (a
+   hit), ``bogus``, ``quit``, counters
+   reset just before: the written frame equal to the "torch" engine's
+   render of the camera moved by camera_motion, each probe's colour equal
+   to that frame's pixel at 1e-4, ``? bogus`` and ``Exiting...`` printed,
+   K4/K5 identical to their plain versions on the moved camera's rays, the
+   ms a command; the second probe alone, counted;
+37. ``python -m raytracer_tpu_torch.live_viewer ... --selftest`` on
+   terrain8 at 640x480 (``selftest OK``, its FPS and render ms a frame);
+   the native library built on this machine (native.available()), and
+   read_png of a 1024x1024 RGBA PNG of every filter type equal with and
+   without it, both times (after the viewer's process has ended).
 
 Beside each kernel's ms per launch (CUDA events around the wrapper: the
 ctypes call and the output allocation included) the device time alone is
@@ -220,7 +249,8 @@ exact_uv and visits instantiations and K4's exact_uv one as rows of their
 own; ``spp_launches``: its launches in each phase-26 cell;
 ``dist_launches``: its launches over the ranks in each phase 27-30 path;
 ``texture_launches``: in each phase-31 frame and step; ``ops_launches``:
-in each phase-32 probe and phase-33 CLI run);
+in each phase-32 probe, phase-33 CLI run, phase-35 orbit and phase-36
+interactive run and probe);
 the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -269,8 +299,11 @@ OPS = {"slab": 25, "box": 7, "inst": 129, "tri": 89, "write": 11,
        "mxu_col": 62, "exact": 102}
 SIZES = [(640, 480), (1920, 1080)]
 N_RANDOM = 65536
-REPS = 10
-PLAIN_REPS = 3  # the new phases' plain versions: oracles, not contenders
+REPS = 5  # CUDA-event medians of frames and kernel launches
+STEP_REPS = 3  # ... of fwd+bwd steps
+# the plain versions' ms: one call, no warm-up (each has run in its phase's
+# correctness check already): oracles, not contenders
+PLAIN_REPS = 1
 ATOL_FRAME = 1e-5
 # cuda vs torch engine gradients: the hits are identical, so only the
 # order of the atomic sums in the gather backward differs
@@ -310,6 +343,20 @@ def _ms(fn, reps=REPS, warmup=True):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _timed(fn):
+    """``(fn(), ms)``: one call timed with CUDA events.  A plain version's
+    or the "torch" engine's time is taken on the call its correctness check
+    makes anyway."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _trace_events(prof):
@@ -420,12 +467,15 @@ def _work_ops(work, closest_hit, exact_uv=False):
     return ops + (work.shape[0] * OPS["write"] if closest_hit else 0)
 
 
-def _profile(step, smi, steps=3, label="fwd+bwd"):
-    """Trace ``steps`` calls of ``step`` with torch.profiler; print the
-    kernels per step, device busy time, idle share and the top kernels."""
+def _profile(step, smi, steps=3, label="fwd+bwd", warmup=True):
+    """Trace ``steps`` calls of ``step`` with torch.profiler (after one
+    untraced call unless ``warmup`` is False: the caller has just run it);
+    print the kernels per step, device busy time, idle share and the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    step()
+    if warmup:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -660,8 +710,9 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
         launches.update({name: counts[name] for name in used})
         for s in SIZES:
             img = imgs[s]
-            ref = render_frame(scene, cams[s], pcfg.replace(
-                width=s[0], height=s[1], engine="torch"))
+            ref, out["timing"][f"frame_ms_torch_{pname}_{s[0]}x{s[1]}"] = \
+                _timed(lambda: render_frame(scene, cams[s], pcfg.replace(
+                    width=s[0], height=s[1], engine="torch")))
             if tuple(img.shape) != (s[1], s[0], 4) or not bool(
                     torch.isfinite(img).all()):
                 raise AssertionError(f"terrain6 {pname} {s}: bad frame")
@@ -738,16 +789,14 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
             c = pcfg.replace(width=s[0], height=s[1])
             timing[f"frame_ms_cuda_{key}"] = _ms(
                 lambda: render_frame(scene, cams[s], c))
-            timing[f"frame_ms_torch_{key}"] = _ms(
-                lambda: render_frame(scene, cams[s], c.replace(
-                    engine="torch")), reps=1, warmup=False)
             print(f"time terrain6 {key} [{smi}]: frame cuda "
                   f"{timing[f'frame_ms_cuda_{key}']:.3f} ms / torch "
                   f"{timing[f'frame_ms_torch_{key}']:.3f} ms")
     timing[f"step_ms_cuda_cull_{big_key}"] = _ms(
-        lambda: loss_and_grads("cuda"), reps=5)
+        lambda: loss_and_grads("cuda"), reps=STEP_REPS)
     print(f"time terrain6 cull fwd+bwd {big_key} [{smi}]: "
-          f"{timing[f'step_ms_cuda_cull_{big_key}']:.3f} ms (median of 5)")
+          f"{timing[f'step_ms_cuda_cull_{big_key}']:.3f} ms (median of "
+          f"{STEP_REPS})")
 
     lay, o_p, d_p, cand, info, tile = lists(cfgs[main], ro, rd)
     k4 = (o_p, d_p, cand, info, tile, data.tables)
@@ -758,13 +807,13 @@ def _terrain6(dev, smi, rays_random, frame8_main, cfg8_main, cam8_main,
     timing.update({
         "k4_ms": _ms(lambda: cull.cull_cast(*k4)),
         "k4_plain_ms": _ms(lambda: cull.cull_cast_reference(*k4),
-                           reps=PLAIN_REPS),
+                           reps=PLAIN_REPS, warmup=False),
         "k5_ms": _ms(lambda: cull.cull_occlude(*k5)),
         "k5_plain_ms": _ms(lambda: cull.cull_occlude_reference(*k5),
-                           reps=PLAIN_REPS),
+                           reps=PLAIN_REPS, warmup=False),
         "k6_ms": _ms(lambda: mxu.mxu_cast(*k6)),
         "k6_plain_ms": _ms(lambda: mxu.mxu_cast_reference(*k6_plain),
-                           reps=PLAIN_REPS),
+                           reps=PLAIN_REPS, warmup=False),
     })
     print(f"time terrain6 {main_key} [{smi}]: K4 {timing['k4_ms']:.4f} ms / "
           f"plain {timing['k4_plain_ms']:.3f} ms; K5 {timing['k5_ms']:.4f} "
@@ -1153,7 +1202,7 @@ def _geomgrad(dev, smi, rays_random):
             errs[key] = float((a - b).abs().max())
         if float(g_c["verts"].abs().max()) == 0.0:
             raise AssertionError(f"{cname}: vertex grads are zero")
-        ms = _ms(step, reps=5)
+        ms = _ms(step, reps=STEP_REPS)
         rec = {"loss": float(loss_c), "loss_torch": float(loss_t),
                "launches": counts, "grad_max_abs_err": errs,
                "step_ms": ms, "mrays_per_s": rays_big / ms / 1e3}
@@ -1162,7 +1211,7 @@ def _geomgrad(dev, smi, rays_random):
               f"torch engine (verts max abs {errs[VERTS]:.3g} of max "
               f"|g| {float(g_t['verts'].abs().max()):.3g}); launches "
               f"{ {n: c for n, c in counts.items() if c} }; step {ms:.3f} ms "
-              f"({rec['mrays_per_s']:.3f} Mrays/s, median of 5)")
+              f"({rec['mrays_per_s']:.3f} Mrays/s, median of {STEP_REPS})")
         rec["profile_backward"] = _profile_backward(
             loss_fn, params_fn, smi, f"{cname} geometry step {keys[-1]}")
         out["steps"][cname] = rec
@@ -1218,13 +1267,15 @@ def _geomgrad(dev, smi, rays_random):
             timing[k].update({
                 "k1x_ms": _ms(lambda: ce.bvh_cast(o, d, data8, exact_uv=True)),
                 "k1x_plain_ms": _ms(lambda: ce.bvh_cast_reference(
-                    o, d, data8, exact_uv=True), reps=PLAIN_REPS),
+                    o, d, data8, exact_uv=True),
+                    reps=PLAIN_REPS, warmup=False),
                 "k4x_ms": _ms(lambda: cull.cull_cast(*a4, exact_uv=True)),
                 "k4x_plain_ms": _ms(lambda: cull.cull_cast_reference(
-                    *a4, exact_uv=True), reps=PLAIN_REPS),
+                    *a4, exact_uv=True),
+                    reps=PLAIN_REPS, warmup=False),
                 "k1v_ms": _ms(lambda: ce.bvh_visit_counts(o, d, data8)),
                 "k1v_plain_ms": _ms(lambda: ce.bvh_visit_counts_reference(
-                    o, d, data8), reps=PLAIN_REPS),
+                    o, d, data8), reps=PLAIN_REPS, warmup=False),
             })
         t = timing[k]
         print(f"device time {k} [{smi}]: K1 exact_uv {t['k1x_device_ms']:.4f}"
@@ -1473,7 +1524,7 @@ def _bounces(dev, smi):
         kt = float(mats.kt.abs().max())
         if kr == 0.0 or (mixed and kt == 0.0):
             raise AssertionError(f"{name} step: kr/kt grads zero")
-        ms = _ms(lambda: step("cuda"), reps=5)
+        ms = _ms(lambda: step("cuda"), reps=STEP_REPS)
         out["steps"][name] = {"launches": counts, "grad_max_abs_err": err,
                               "loss": float(loss_c), "step_ms": ms,
                               "mrays_per_s": big[0] * big[1] / ms / 1e3,
@@ -1481,7 +1532,8 @@ def _bounces(dev, smi):
         print(f"{name} step {big[0]}x{big[1]} [{smi}]: loss "
               f"{float(loss_c):.6f} (torch {float(loss_t):.6f}), grads cuda "
               f"== torch engine (max abs {err:.3g}; max |g| kr {kr:.3g}, kt "
-              f"{kt:.3g}), launches {counts}; {ms:.3f} ms (median of 5), "
+              f"{kt:.3g}), launches {counts}; {ms:.3f} ms (median of "
+              f"{STEP_REPS}), "
               f"{out['steps'][name]['mrays_per_s']:.2f} Mrays/s")
 
     # ---- phase 22: the synthetic worlds at their own 128x96 -----------------
@@ -1932,7 +1984,7 @@ def _spp(dev, smi):
             raise AssertionError(f"{label}: peak memory {peak} at spp "
                                  f"{n_spp} > 1.25 x {peak_ref} at spp "
                                  f"{SPP_REF}")
-        prof = _profile(run_ref, smi, steps=1,
+        prof = _profile(run_ref, smi, steps=1, warmup=False,
                         label=f"{label} at spp {SPP_REF}")
         ms = min(times)
         rec = {"spp": n_spp, "size": list(size), "static_tile_cap": cap,
@@ -2106,21 +2158,80 @@ def _rank_dist4(device):
     return rec
 
 
-def _same_as_plain(label, scene, cfg, o, d, fused):
+def _equal_input(x, y):
+    """Equal query inputs: tensors of one shape, dtype and value; a number
+    stands for a tensor filled with it (the casts' ``max_t`` takes
+    either)."""
+    if not isinstance(x, torch.Tensor):
+        x, y = y, x
+    if not isinstance(x, torch.Tensor):
+        return x == y
+    if not isinstance(y, torch.Tensor):
+        return bool((x == y).all())
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+
+
+class _KeptCast:
+    """A plain cast (``make_cast(..., engine="torch")``) that keeps each
+    answer beside its inputs and gives it again for equal inputs: the
+    reference frame's walks then serve the kernels' comparison on the same
+    rays (``_same_as_plain``), so each plain walk runs once.  Inputs that
+    differ are walked anew; ``reused`` counts the answers given again."""
+
+    def __init__(self, cast):
+        self.cast, self.kept, self.reused = cast, [], 0
+        for name in ("occlude", "occlude2"):
+            fn = getattr(cast, name, None)
+            setattr(self, name, None if fn is None else (
+                lambda *a, _n=name, _f=fn: self._answer(_n, _f, a)))
+
+    def _answer(self, name, fn, args):
+        for kname, kargs, res in self.kept:
+            if kname == name and len(kargs) == len(args) and all(
+                    _equal_input(x, y) for x, y in zip(kargs, args)):
+                self.reused += 1
+                return res
+        res = fn(*args)
+        self.kept.append((name, args, res))
+        return res
+
+    def __call__(self, o, d):
+        return self._answer("cast", self.cast, (o, d))
+
+
+def _plain_frame(scene, cam, cfg):
+    """``render_frame`` with ``engine="torch"`` (one sample) through a
+    :class:`_KeptCast`: ``(frame, kept_cast)``."""
+    from raytracer_tpu_torch.render import engine as eng
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+
+    cfg = cfg.replace(engine="torch")
+    if cfg.spp != 1:
+        raise ValueError("_plain_frame renders one sample")
+    geom = expand_geometry(scene)
+    kept = _KeptCast(eng.make_cast(scene, geom, cfg))
+    with torch.no_grad():
+        img, _ = eng._render_one_stats(scene, geom, kept, cam, cfg, None)
+    return img, kept
+
+
+def _same_as_plain(label, scene, cfg, o, d, fused, plain=None):
     """The cast of ``scene`` under ``cfg`` through the kernels and through
     their plain versions on the rays ``(o, d)`` (launches here are
     comparisons, not the main path's): every hit output identical; then the
     two lights' shadow queries of those hits, through ``occlude2`` (K2)
     where ``fused``, else ``occlude`` per light, identical masks; a cast
     without any-hit queries (the MXU cast) casts the shadow rays for their
-    closest hits, every output identical."""
+    closest hits, every output identical.  ``plain``: the plain cast to
+    take (a :class:`_KeptCast` of the reference frame), else a new one."""
     from raytracer_tpu_torch.render.engine import make_cast
     from raytracer_tpu_torch.render.geometry import expand_geometry
     from raytracer_tpu_torch.render.shading import shadow_rays
 
     geom = expand_geometry(scene)
     ck = make_cast(scene, geom, cfg.replace(engine="cuda"))
-    cp = make_cast(scene, geom, cfg.replace(engine="torch"))
+    cp = plain if plain is not None else make_cast(
+        scene, geom, cfg.replace(engine="torch"))
     with torch.no_grad():
         hk = ck(o, d)
         _compare_hits(label, hk, cp(o, d))
@@ -2135,7 +2246,7 @@ def _same_as_plain(label, scene, cfg, o, d, fused):
                               cp(so, sd))
             print(f"{label}: {int(hk.valid.sum())} hits of {o.shape[0]} "
                   "rays, their two lights' shadow rays: every output "
-                  "identical to plain (closest hits)")
+                  f"identical to plain (closest hits{_reused(plain)})")
             return
         if fused:
             bk, bp = ck.occlude2(*q), cp.occlude2(*q)
@@ -2150,7 +2261,16 @@ def _same_as_plain(label, scene, cfg, o, d, fused):
     blocked = [int((b & hk.valid).sum()) for b in bk]
     print(f"{label}: {int(hk.valid.sum())} hits of {o.shape[0]} rays, "
           f"blocked among them {blocked}: every output identical to plain "
-          f"({'occlude2' if fused else 'occlude per light'})")
+          f"({'occlude2' if fused else 'occlude per light'}"
+          f"{_reused(plain)})")
+
+
+def _reused(plain):
+    """``_same_as_plain``'s note of the plain answers a :class:`_KeptCast`
+    gave again."""
+    if plain is None:
+        return ""
+    return f"; {plain.reused} plain answers the reference frame's"
 
 
 def _round_rays(scene, cam, cfg, dist):
@@ -2548,7 +2668,7 @@ def _texture(dev, smi):
             worlds[key] = (scene, cam, cfg)
             img, counts = _counted(key, lambda: eng.render_frame(
                 scene, cam, cfg), used)
-            ref = eng.render_frame(scene, cam, cfg.replace(engine="torch"))
+            ref, plain = _plain_frame(scene, cam, cfg)
             diff = _frame_checks(f"textured {key}", img, ref, s)
             flat_cfg = cfg.replace(texture_mapping=False)
             flat = eng.render_frame(scene, cam, flat_cfg)
@@ -2559,7 +2679,8 @@ def _texture(dev, smi):
                                      "frame")
             ro, rd, _, _ = eng._frame_rays_blocked(cam, cfg)
             _same_as_plain(f"textured {key}", scene, cfg, ro, rd,
-                           fused=True)
+                           fused=True, plain=plain)
+            del plain
             ms = _ms(lambda: eng.render_frame(scene, cam, cfg))
             ms_flat = _ms(lambda: eng.render_frame(scene, cam, flat_cfg))
             rec = {"max_abs_diff": diff, "changed_pixels": changed,
@@ -2644,7 +2765,7 @@ def _texture(dev, smi):
     if float(g_c["materials"].kd[top_mat].abs().max()) != 0.0:
         raise AssertionError("textured step: the textured type's kd took a "
                              "gradient")
-    step_ms = _ms(lambda: step("cuda"), reps=5)
+    step_ms = _ms(lambda: step("cuda"), reps=STEP_REPS)
     out["step"] = {"loss": float(loss_c), "loss_torch": float(loss_t),
                    "max_abs_grad_diff": err, "launches": counts,
                    "ms": step_ms}
@@ -2652,7 +2773,8 @@ def _texture(dev, smi):
     print(f"phase 31 textured terrain8 {big[0]}x{big[1]} fwd+bwd [{smi}]: "
           f"loss {float(loss_c):.6f} (torch engine {float(loss_t):.6f}), "
           f"grads == torch engine (max abs {err:.3g}; rtol {RTOL_GRAD} atol "
-          f"{ATOL_GRAD}), launches {counts}, {step_ms:.3f} ms (median of 5)")
+          f"{ATOL_GRAD}), launches {counts}, {step_ms:.3f} ms (median of "
+          f"{STEP_REPS})")
     return out
 
 
@@ -2875,6 +2997,401 @@ def _elastic(dev, smi, tmp):
             "log_lines": len(err.splitlines())}
 
 
+# ---- phases 35-37: the fly-through, the interactive loop, the viewer and
+# the native library ---------------------------------------------------------
+ORBIT_FRAMES = 30  # phase 35's fly-through
+ORBIT_TIMED = 10  # ... of which the first are timed in parts
+ORBIT_LIGHTS3_FRAMES = 10
+# phase 36's probe pixels: the frame's centre (sky on terrain6 after the
+# moves) and a terrain pixel below it
+CLICKS = [(320, 240), (320, 360)]
+NATIVE_SIZE = 1024  # phase 37's synthetic PNG: NATIVE_SIZE^2 RGBA
+
+
+def _cli_lines(label, argv, used, stdin=None):
+    """``cli.main(argv)`` in this process, stdout captured (``stdin``: the
+    lines fed to it), launch counters reset just before.  Returns ``(lines,
+    counts)``."""
+    import contextlib
+    import io
+
+    from raytracer_tpu_torch import cli
+
+    said, old_stdin = io.StringIO(), sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(said):
+            rc, counts = _counted(label, lambda: cli.main(argv), used)
+    finally:
+        sys.stdin = old_stdin
+    lines = said.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"{label}: cli returned {rc}: {lines[-5:]}")
+    return lines, counts
+
+
+def _fps_of(label, lines, n_frames):
+    """The ``FPS: x`` windows of an ``--orbit`` run."""
+    fps = [float(x.split()[1]) for x in lines if x.startswith("FPS: ")]
+    if len(fps) != n_frames // 5 or f"wrote {n_frames} frames to" not in \
+            "\n".join(lines):
+        raise AssertionError(f"{label}: {len(fps)} FPS lines: {lines[-8:]}")
+    return fps
+
+
+def _orbit(dev, smi, tmp):
+    """Phase 35: the fly-through.  ``python -m raytracer_tpu_torch.cli
+    --orbit 30`` on terrain8 at 1920x1080 as a process of its own (30 PNGs,
+    the FPS lines, its last frame equal to this process's render of the
+    same camera); ``camera_motion.orbit_frames`` on the card: frames 0 and
+    29 at 640x480 against the ``"torch"`` engine (atol 1e-5), K1 and K2
+    identical to their plain versions on frame 29's primary rays and shadow
+    queries; ``cli.main --orbit 30`` at 640x480 in this process (counters
+    reset just before: one K1 and one K2 a frame) and ``--orbit 10`` on
+    terrain8_lights3 (K1 and K3; frame 9 against the ``"torch"`` engine,
+    K3 against its plain version); at both sizes, over the first 10 orbit
+    cameras, the render-only ms a frame (CUDA events), the frame's u8 copy
+    to the host and ``write_png`` (host clock).  Returns the numbers for
+    the report."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import camera_motion as cm
+    from raytracer_tpu_torch.builder import scale_camera
+    from raytracer_tpu_torch.pngio import read_png, write_png
+    from raytracer_tpu_torch.render import engine as eng
+
+    main, big = SIZES[0], SIZES[-1]
+    walk = ("bvh_cast", "bvh_occlude2")
+    out = {"launches": {}, "fps": {}, "per_frame_ms": {}}
+    n = ORBIT_FRAMES
+
+    # the 1080p fly-through as a user runs it
+    frames_dir = os.path.join(tmp, "orbit")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytracer_tpu_torch.cli", "-c", WORLD,
+         "--orbit", str(n), "--width", str(big[0]), "--height", str(big[1]),
+         "--out-dir", frames_dir], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli --orbit {n} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    big_key = f"{big[0]}x{big[1]}"
+    fps = _fps_of(f"cli --orbit {n} {big_key}", proc.stdout.splitlines(), n)
+    names = sorted(os.listdir(frames_dir))
+    if names != [f"frame_{i:04d}.png" for i in range(n)]:
+        raise AssertionError(f"cli --orbit {n}: wrote {names}")
+    out["fps"][big_key] = fps
+    out["process_s"] = wall
+
+    w = rtt.generate(WORLD)
+    scene = rtt.to_device(w.scene, dev)
+    cams, cfgs = {}, {}
+    for s in SIZES:
+        cam = rtt.to_device(scale_camera(w.camera, s[0], w.config.width), dev)
+        cams[s] = list(cm.orbit_frames(cam, n))
+        cfgs[s] = w.config.replace(width=s[0], height=s[1], engine="cuda")
+        if cams[s][-1].rot.device != cam.rot.device:
+            raise AssertionError("orbit_frames left the camera's device")
+    with torch.no_grad():
+        last = eng.frame_to_u8(eng.render_frame(scene, cams[big][-1],
+                                                cfgs[big])).cpu().numpy()
+    png = read_png(os.path.join(frames_dir, names[-1]))
+    if not np.array_equal(png[..., :3], last[..., :3]):
+        raise AssertionError(f"cli --orbit {big_key}: frame {n - 1} differs "
+                             "from this process's render of its camera on "
+                             f"{int((png[..., :3] != last[..., :3]).sum())} "
+                             "values")
+
+    # frames 0 and 29 against the "torch" engine; K1 and K2 against plain
+    diffs = {}
+    for i in (0, n - 1):
+        with torch.no_grad():
+            img = eng.render_frame(scene, cams[main][i], cfgs[main])
+        ref, plain = _plain_frame(scene, cams[main][i], cfgs[main])
+        diffs[i] = _frame_checks(f"orbit frame {i}", img, ref, main)
+    ro, rd, _, _ = eng._frame_rays_blocked(cams[main][-1], cfgs[main])
+    _same_as_plain(f"phase 35 orbit frame {n - 1} {main[0]}x{main[1]}",
+                   scene, cfgs[main], ro, rd, fused=True, plain=plain)
+    del plain
+    out["max_abs_diff"] = max(diffs.values())
+
+    # the CLI's fly-through in this process: launches and FPS at 640x480
+    main_key = f"{main[0]}x{main[1]}"
+    lines, counts = _cli_lines(
+        f"orbit {main_key}", ["-c", WORLD, "--orbit", str(n), "--width",
+                              str(main[0]), "--height", str(main[1]),
+                              "--out-dir", os.path.join(tmp, "orbit_main")],
+        walk)
+    if counts != {k: n for k in walk}:
+        raise AssertionError(f"orbit {main_key}: launches {counts}, not one "
+                             "K1 and one K2 a frame")
+    out["fps"][main_key] = _fps_of(f"orbit {main_key}", lines, n)
+    out["launches"][f"orbit {main_key}"] = counts
+
+    # terrain8_lights3: the per-light path (K3)
+    m3 = ORBIT_LIGHTS3_FRAMES
+    lines, counts = _cli_lines(
+        f"orbit terrain8_lights3 {main_key}",
+        ["-c", WORLD_LIGHTS3, "--orbit", str(m3), "--width", str(main[0]),
+         "--height", str(main[1]), "--out-dir",
+         os.path.join(tmp, "orbit_lights3")], ("bvh_cast", "bvh_occlude"))
+    out["fps"][f"terrain8_lights3 {main_key}"] = _fps_of(
+        "orbit terrain8_lights3", lines, m3)
+    out["launches"][f"orbit terrain8_lights3 {main_key}"] = counts
+    w3 = rtt.generate(WORLD_LIGHTS3)
+    scene3 = rtt.to_device(w3.scene, dev)
+    cfg3 = w3.config.replace(width=main[0], height=main[1], engine="cuda")
+    *_, cam3 = cm.orbit_frames(rtt.to_device(scale_camera(
+        w3.camera, main[0], w3.config.width), dev), m3)
+    with torch.no_grad():
+        img3 = eng.render_frame(scene3, cam3, cfg3)
+        ref3 = eng.render_frame(scene3, cam3, cfg3.replace(engine="torch"))
+    out["lights3_max_abs_diff"] = _frame_checks("orbit terrain8_lights3",
+                                                img3, ref3, main)
+    ro3, rd3, _, _ = eng._frame_rays_blocked(cam3, cfg3)
+    _same_as_plain(f"phase 35 orbit terrain8_lights3 frame {m3 - 1}",
+                   scene3, cfg3, ro3, rd3, fused=False)
+
+    # where a frame's time goes: the render, the u8 copy, the PNG encode
+    for s in SIZES:
+        key = f"{s[0]}x{s[1]}"
+        render, host, encode = [], [], []
+        path = os.path.join(tmp, f"timed_{key}.png")
+        for cam in cams[s][:ORBIT_TIMED]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.no_grad():
+                start.record()
+                img = eng.render_frame(scene, cam, cfgs[s])
+                end.record()
+                end.synchronize()
+                t1 = time.perf_counter()
+                u8 = eng.frame_to_u8(img).cpu().numpy()
+            t2 = time.perf_counter()
+            write_png(path, u8[..., :3])
+            t3 = time.perf_counter()
+            render.append(start.elapsed_time(end))
+            host.append((t2 - t1) * 1e3)
+            encode.append((t3 - t2) * 1e3)
+        rec = {"render_ms": statistics.median(render),
+               "to_host_ms": statistics.median(host),
+               "write_png_ms": statistics.median(encode),
+               "fps": out["fps"][key]}
+        out["per_frame_ms"][key] = rec
+        print(f"phase 35 orbit terrain8 {key} [{smi}]: FPS {rec['fps']} "
+              "(windows of 5 frames; "
+              + ("a process of its own, " if s == big else "")
+              + "render, u8 copy and PNG encode); per frame, median of "
+              f"{ORBIT_TIMED}: "
+              f"render {rec['render_ms']:.3f} ms (CUDA events), u8 to host "
+              f"{rec['to_host_ms']:.3f} ms, write_png "
+              f"{rec['write_png_ms']:.3f} ms (host clock)")
+    print(f"phase 35 [{smi}]: orbit frames 0 and {n - 1} == torch engine "
+          f"(max abs diff {out['max_abs_diff']:.3g}), the {big_key} "
+          f"process's frame {n - 1} == this process's render, launches "
+          f"{out['launches']}; terrain8_lights3 frame {m3 - 1} == torch "
+          f"engine (max abs diff {out['lights3_max_abs_diff']:.3g}), FPS "
+          f"{out['fps'][f'terrain8_lights3 {main_key}']}; the {big_key} "
+          f"process {wall:.1f} s")
+    return out
+
+
+def _interactive(dev, smi, tmp):
+    """Phase 36: ``cli.main --interactive`` on terrain6 at 640x480 (the
+    cull: K4 and K5) in this process, fed ``w``, ``a``, ``mouse 5 -3``,
+    ``click 320 240``, ``click 320 360``, ``bogus``, ``quit`` on stdin,
+    counters reset just before: three frames, ``? bogus`` and
+    ``Exiting...`` printed; the written frame equal to a ``"torch"``-engine
+    render of the camera moved by ``camera_motion``, each probe's printed
+    colour equal to that frame's pixel at 1e-4 (the second pixel a hit);
+    K4 and K5 identical to their plain versions on the moved camera's
+    primary rays and shadow queries; the second probe alone, counted.
+    Returns the numbers for the report."""
+    import contextlib
+    import io
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch import camera_motion as cm
+    from raytracer_tpu_torch.builder import scale_camera
+    from raytracer_tpu_torch.debug import debug_cast
+    from raytracer_tpu_torch.pngio import read_png
+    from raytracer_tpu_torch.render import engine as eng
+
+    main = SIZES[0]
+    key = f"{main[0]}x{main[1]}"
+    cull = ("cull_cast", "cull_occlude")
+    frame_path = os.path.join(tmp, "interactive.png")
+    script = "w\na\nmouse 5 -3\n" + "".join(
+        f"click {x} {y}\n" for x, y in CLICKS) + "bogus\nquit\n"
+    lines, counts = _cli_lines(
+        f"interactive terrain6 {key}",
+        ["-c", WORLD6, "--interactive", "--width", str(main[0]), "--height",
+         str(main[1]), "-o", frame_path], cull, stdin=script)
+    frame_ms = [float(x.split()[1]) for x in lines
+                if x.startswith("frame: ")]
+    if len(frame_ms) != 3 or "? bogus" not in lines or \
+            lines[-1] != "Exiting...":
+        raise AssertionError(f"interactive: {lines[-12:]}")
+
+    w = rtt.generate(WORLD6)
+    scene = rtt.to_device(w.scene, dev)
+    cfg = w.config.replace(width=main[0], height=main[1], engine="cuda")
+    cam = rtt.to_device(scale_camera(w.camera, main[0], w.config.width), dev)
+    moved = cm.mouse_look(cm.key_move(cm.key_move(cam, "w"), "a"), 5, -3)
+    ref, plain = _plain_frame(scene, moved, cfg)
+    want = eng.frame_to_u8(ref).cpu().numpy()[..., :3]
+    got = read_png(frame_path)[..., :3]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"interactive: the written frame differs from "
+                             f"the torch engine's on "
+                             f"{int((got != want).sum())} values")
+    clicks = {}
+    for x, y in CLICKS:
+        (said,) = [line for line in lines
+                   if line.startswith(f"pixel ({x}, {y}) final color:")]
+        color = np.array(said.split("[")[1].rstrip("]").split(), np.float32)
+        pixel = ref[y, x].cpu().numpy()
+        if not np.allclose(color, pixel, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"interactive click ({x}, {y}): colour "
+                                 f"{color} against the frame's {pixel}")
+        clicks[(x, y)] = {"color": color.tolist(),
+                          "max_abs_diff": float(np.abs(color - pixel).max()),
+                          "hit": bool(pixel[:3].max() > 0)}
+    if not clicks[CLICKS[-1]]["hit"]:
+        raise AssertionError(f"interactive click {CLICKS[-1]}: not a hit")
+    ro, rd, _, _ = eng._frame_rays_blocked(moved, cfg)
+    _same_as_plain(f"phase 36 interactive terrain6 {key}", scene, cfg, ro, rd,
+                   fused=True, plain=plain)
+    del plain
+    with contextlib.redirect_stdout(io.StringIO()):
+        (_, color2), probe_counts = _counted(
+            "interactive probe", lambda: debug_cast(scene, moved, cfg,
+                                                    *CLICKS[-1]), cull)
+    if color2.tolist() != clicks[CLICKS[-1]]["color"]:
+        raise AssertionError("the probe in this process gives another colour")
+    out = {"launches": {f"interactive terrain6 {key}": counts,
+                        f"probe terrain6 {CLICKS[-1]}": probe_counts},
+           "frame_ms": frame_ms,
+           "clicks": {f"{x},{y}": v for (x, y), v in clicks.items()}}
+    print(f"phase 36 interactive terrain6 {key} [{smi}]: w, a, mouse 5 -3 "
+          f"rendered in {frame_ms} ms a command (render, u8 copy, "
+          f"write_png; host clock), the frame == torch engine's render of "
+          f"the moved camera (u8), each click's colour == its frame pixel "
+          + ", ".join(f"{c} max abs diff {v['max_abs_diff']:.3g} "
+                      f"({'a hit' if v['hit'] else 'sky'})"
+                      for c, v in clicks.items())
+          + f"; '? bogus', 'Exiting...'; launches {counts}, the probe "
+          f"{CLICKS[-1]} alone {probe_counts}")
+    return out
+
+
+def _native_times(tmp):
+    """Phase 37's native-library timing, after the viewer's process has
+    ended (host clock): a seeded NATIVE_SIZE x NATIVE_SIZE RGBA PNG (in
+    ``tmp``) whose rows cycle through the filter types 0-4, read by
+    ``read_png`` with the native unfilter (median of 5) and with the Python
+    loop (once), the images compared; the unfilter alone natively (median
+    of 5).  Returns the numbers."""
+    import struct
+    import zlib
+
+    from raytracer_tpu_torch import native, pngio
+
+    n = NATIVE_SIZE
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, 256, (n, 4 * n), dtype=np.uint8)
+    raw = b"".join(bytes([y % 5]) + rows[y].tobytes() for y in range(n))
+
+    def chunk(ctype, payload):
+        body = ctype + payload
+        return (struct.pack(">I", len(payload)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    png = os.path.join(tmp, "native.png")
+    with open(png, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", n, n, 8, 6, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+    def timed(fn, reps):
+        times, res = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return res, statistics.median(times)
+
+    rec = {"available": native.available(), "build_log": native.build_log()}
+    if rec["available"]:
+        img, rec["read_png_native_ms"] = timed(lambda: pngio.read_png(png), 5)
+        _, rec["unfilter_native_ms"] = timed(
+            lambda: native.png_unfilter(raw, n, 4 * n, 4), 5)
+        nat = native.png_unfilter
+        native.png_unfilter = lambda *a: None
+        try:
+            img_py, rec["read_png_python_ms"] = timed(
+                lambda: pngio.read_png(png), 1)
+        finally:
+            native.png_unfilter = nat
+        rec["equal"] = bool(np.array_equal(img, img_py))
+        rec["shape"] = list(img.shape)
+    return rec
+
+
+def _viewer_native(dev, smi, tmp):
+    """Phase 37: ``python -m raytracer_tpu_torch.live_viewer -c terrain8
+    --width 640 --height 480 --selftest`` on the card (``selftest OK``, its
+    FPS and render ms a frame), then the native library: built and loaded
+    on this machine (``native.available()``), and ``_native_times``:
+    ``read_png`` equal with and without it, both times.  Returns the
+    numbers for the report."""
+    import socket
+
+    from raytracer_tpu_torch import native
+
+    main = SIZES[0]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytracer_tpu_torch.live_viewer", "-c", WORLD,
+         "--width", str(main[0]), "--height", str(main[1]), "--port",
+         str(port), "--selftest"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    said = [x for x in proc.stdout.splitlines() if x.startswith("selftest OK")]
+    if proc.returncode != 0 or not said:
+        raise AssertionError(f"live_viewer --selftest exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    stats = dict(kv.split("=") for kv in said[0].split()[2:])
+    out = {"viewer": {k: float(v) for k, v in stats.items()},
+           "viewer_process_s": wall}
+    print(f"phase 37 live_viewer terrain8 {main[0]}x{main[1]} --selftest "
+          f"[{smi}]: {said[0]} (FPS of the last 5-frame window of moves, "
+          f"render_ms: render + u8 copy + PNG encode at level 1); the "
+          f"process {wall:.1f} s")
+
+    if not native.available():
+        raise AssertionError(f"the native library did not build:\n"
+                             f"{native.build_log()}")
+    rec = _native_times(tmp)
+    if not rec.get("available") or not rec.get("equal"):
+        raise AssertionError(f"native read_png: {rec}")
+    out["native"] = rec
+    print(f"phase 37 native library [{smi} host]: "
+          f"{os.path.basename(str(native.library_path()))} loaded; read_png "
+          f"of a {rec['shape'][1]}x{rec['shape'][0]} RGBA PNG, rows cycling "
+          f"filter types 0-4: native {rec['read_png_native_ms']:.3f} ms "
+          f"(median of 5; the unfilter alone "
+          f"{rec['unfilter_native_ms']:.3f} ms), Python "
+          f"{rec['read_png_python_ms']:.1f} ms (once), images equal")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2952,6 +3469,7 @@ def main(argv=None) -> int:
 
     # ---- phase 3: K1 against its plain version ------------------------------
     errs = {"bvh_cast": 0.0, "bvh_occlude2": 0.0}
+    plain_ms = {}  # (kernel, tables, rays): the checks' plain calls, timed
     big = SIZES[-1]
     big_key = f"{big[0]}x{big[1]}"
     ro_b, rd_b, _, _ = _frame_rays_blocked(cams[big], cfgs[big])
@@ -2965,8 +3483,8 @@ def main(argv=None) -> int:
             todo[f"primary {big_key}"] = (ro_b, rd_b)
         for rname, (o, d) in todo.items():
             hk = ce.bvh_cast(o, d, tdata)
-            hp = ce.bvh_cast_reference(o, d, tdata)
-            torch.cuda.synchronize()
+            hp, plain_ms[("k1", tname, rname)] = _timed(
+                lambda: ce.bvh_cast_reference(o, d, tdata))
             errs["bvh_cast"] = max(errs["bvh_cast"], _compare_hits(
                 f"K1 {tname}/{rname}", hk, hp))
             print(f"K1 {tname:8s} {rname:18s}: {int(hk.valid.sum())} hits, "
@@ -2993,11 +3511,13 @@ def main(argv=None) -> int:
         f"random {N_RANDOM}": (o_rand, d_rand, mt_rand, o_rand,
                                (-d_rand).contiguous(), inf_rand),
         "degenerate": (o_deg, d_deg, mt_rand, o_deg, d_deg, inf_rand)}
+    occ_plain = {}  # K2's plain masks, K3's plain version's too (phase 6)
     for tname, tdata in (("box", data), ("template", data_tmpl)):
         for sname, q in occ_sets.items():
             bk = ce.bvh_occlude2(*q, tdata)
-            bp = ce.bvh_occlude2_reference(*q, tdata)
-            torch.cuda.synchronize()
+            bp, plain_ms[("k2", tname, sname)] = _timed(
+                lambda: ce.bvh_occlude2_reference(*q, tdata))
+            occ_plain[(tname, sname)] = bp
             for k in range(2):
                 if not torch.equal(bk[k], bp[k]):
                     n = int((bk[k] != bp[k]).sum())
@@ -3023,9 +3543,11 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} was not launched by the main path")
 
     report["frames"] = {}
+    torch_ms = {}  # the "torch" engine's frame: its comparison's call
     for s in SIZES:
         img = frames[s]
-        ref = render_frame(scene, cams[s], cfgs[s].replace(engine="torch"))
+        ref, torch_ms[s] = _timed(lambda: render_frame(
+            scene, cams[s], cfgs[s].replace(engine="torch")))
         if tuple(img.shape) != (s[1], s[0], 4):
             raise AssertionError(f"frame {s}: shape {tuple(img.shape)}")
         if not bool(torch.isfinite(img).all()):
@@ -3052,9 +3574,7 @@ def main(argv=None) -> int:
     for s in SIZES:
         key = f"{s[0]}x{s[1]}"
         ms_cuda = _ms(lambda: render_frame(scene, cams[s], cfgs[s]))
-        ms_torch = _ms(lambda: render_frame(
-            scene, cams[s], cfgs[s].replace(engine="torch")), reps=1,
-            warmup=False)
+        ms_torch = torch_ms[s]
         rays_n = s[0] * s[1]
         timing[key] = {"frame_ms_cuda": ms_cuda, "frame_ms_torch": ms_torch,
                        "primary_mrays_per_s_cuda": rays_n / ms_cuda / 1e3}
@@ -3063,13 +3583,9 @@ def main(argv=None) -> int:
         walk_inputs[key] = (ro_s, rd_s, occ)
         timing[key].update({
             "k1_ms": _ms(lambda: ce.bvh_cast(ro_s, rd_s, data)),
-            "k1_plain_ms": _ms(lambda: ce.bvh_cast_reference(ro_s, rd_s,
-                                                             data),
-                               reps=PLAIN_REPS),
+            "k1_plain_ms": plain_ms[("k1", "box", f"primary {key}")],
             "k2_ms": _ms(lambda: ce.bvh_occlude2(*occ, data)),
-            "k2_plain_ms": _ms(lambda: ce.bvh_occlude2_reference(*occ,
-                                                                 data),
-                               reps=PLAIN_REPS),
+            "k2_plain_ms": plain_ms[("k2", "box", f"shadow {key}")],
             "k1_device_ms": _device_ms(lambda: ce.bvh_cast(ro_s, rd_s,
                                                            data)),
             "k2_device_ms": _device_ms(lambda: ce.bvh_occlude2(*occ, data)),
@@ -3081,7 +3597,7 @@ def main(argv=None) -> int:
               f"/ torch {t['frame_ms_torch']:.3f} ms (once); K1 "
               f"{t['k1_ms']:.4f} ms / plain {t['k1_plain_ms']:.3f} ms; K2 "
               f"{t['k2_ms']:.4f} ms / plain {t['k2_plain_ms']:.3f} ms (median "
-              f"of {REPS} / {PLAIN_REPS}); device "
+              f"of {REPS} / once); device "
               f"time alone K1 {t['k1_device_ms']:.4f}, K2 "
               f"{t['k2_device_ms']:.4f}, K3 {t['k3_device_ms']:.4f} ms")
     # ---- phase 6: K3 against its plain version and K2 -----------------------
@@ -3091,7 +3607,16 @@ def main(argv=None) -> int:
             pair = ce.bvh_occlude2(*q, tdata)
             for k, lname in enumerate(("finite max_t", "+inf max_t")):
                 bk = ce.bvh_occlude(*q[3 * k:3 * k + 3], tdata)
-                bp = ce.bvh_occlude_reference(*q[3 * k:3 * k + 3], tdata)
+                bp = occ_plain[(tname, sname)][k]
+                if tname == "box" and sname == f"shadow {main_key}":
+                    own, plain_ms[("k3", k)] = _timed(
+                        lambda: ce.bvh_occlude_reference(*q[3 * k:3 * k + 3],
+                                                         tdata))
+                    if not torch.equal(own, bp):
+                        raise AssertionError(
+                            f"K3's plain version differs from K2's on query "
+                            f"{k + 1} of {sname} on "
+                            f"{int((own != bp).sum())} rays")
                 torch.cuda.synchronize()
                 for other, what in ((bp, "its plain version"),
                                     (pair[k], f"K2 query {k + 1}")):
@@ -3169,8 +3694,8 @@ def main(argv=None) -> int:
     for key in ("cam_pos", "cam_rot"):
         if float(g_c[key].abs().max()) == 0.0:
             raise AssertionError(f"train step grad {key} is zero")
-    loss_t, g_t = loss_and_grads("torch",
-                                 trainable_params(scene, cams[big]))
+    (loss_t, g_t), step_ms_torch = _timed(lambda: loss_and_grads(
+        "torch", trainable_params(scene, cams[big])))
     grad_err = {"max_abs": 0.0, "max_rel": 0.0}
     for (key, a), b in zip(leaves_c, tree.leaves(g_t)):
         torch.testing.assert_close(
@@ -3213,12 +3738,10 @@ def main(argv=None) -> int:
         return lambda: loss_and_grads(engine, params_s)
 
     step_ms = _ms(fwd_bwd("cuda"))
-    step_ms_torch = _ms(fwd_bwd("torch"), reps=1, warmup=False)
     k3_in = (o1, d1, dist)
     timing[main_key].update({
         "k3_ms": _ms(lambda: ce.bvh_occlude(*k3_in, data)),
-        "k3_plain_ms": _ms(lambda: ce.bvh_occlude_reference(*k3_in, data),
-                           reps=PLAIN_REPS),
+        "k3_plain_ms": plain_ms[("k3", 0)],
     })
     timing[big_key].update({
         "fwd_bwd_ms_cuda": step_ms, "fwd_bwd_ms_torch": step_ms_torch,
@@ -3226,7 +3749,7 @@ def main(argv=None) -> int:
     })
     t = timing[main_key]
     print(f"time {main_key} [{smi}]: K3 {t['k3_ms']:.4f} ms / plain "
-          f"{t['k3_plain_ms']:.3f} ms (median of {REPS} / {PLAIN_REPS})")
+          f"{t['k3_plain_ms']:.3f} ms (median of {REPS} / once)")
     t = timing[big_key]
     print(f"time {big_key} [{smi}]: fwd+bwd step cuda {step_ms:.3f} ms "
           f"({t['fwd_bwd_mrays_per_s_cuda']:.2f} Mrays/s, median of {REPS}) "
@@ -3262,7 +3785,9 @@ def main(argv=None) -> int:
                   "ops)")
     bounds = bounds_at[main_key]
 
+    print(f"phases 1-8: {time.perf_counter() - t_start:.1f} s")
     # ---- phases 9-13: terrain6 on the cull and the MXU cast -----------------
+    t_p = time.perf_counter()
     t6 = _terrain6(dev, smi, (o_rand, d_rand), frames[main], cfgs[main],
                    cams[main], scene)
     bounds.update(t6["bounds"])
@@ -3277,8 +3802,10 @@ def main(argv=None) -> int:
                             t6["timing"][f"device_ms_{key}"].items()})
     bounds_at[big_key].update(t6[f"bounds_{big_key}"])
     report["terrain6"] = t6
+    print(f"phases 9-13: {time.perf_counter() - t_p:.1f} s")
 
     # ---- phases 14-18: the geometry-gradient path ---------------------------
+    t_p = time.perf_counter()
     gg = _geomgrad(dev, smi, (o_rand, d_rand))
     errs.update(gg["errs"])
     launches.update({k: v for k, v in gg["launches"].items()
@@ -3287,6 +3814,7 @@ def main(argv=None) -> int:
         timing[k].update(gg["timing"][k])
         bounds_at[k].update(gg["bounds"][k])
     report["geomgrad"] = gg
+    print(f"phases 14-18: {time.perf_counter() - t_p:.1f} s")
 
     # ---- phases 19-22: the bounce rounds ------------------------------------
     t_b = time.perf_counter()
@@ -3313,12 +3841,23 @@ def main(argv=None) -> int:
             report[key] = run()
             report[key]["phase_seconds"] = time.perf_counter() - t_o
             print(f"{key} phase: {report[key]['phase_seconds']:.1f} s")
+    # ---- phases 35-37: the fly-through, the interactive loop, the viewer ----
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, run in (("orbit", lambda: _orbit(dev, smi, tmp)),
+                         ("interactive", lambda: _interactive(dev, smi, tmp)),
+                         ("viewer", lambda: _viewer_native(dev, smi, tmp))):
+            t_o = time.perf_counter()
+            report[key] = run()
+            report[key]["phase_seconds"] = time.perf_counter() - t_o
+            print(f"{key} phase: {report[key]['phase_seconds']:.1f} s")
     texture_launches, ops_launches = {}, {}
     for into, paths in ((texture_launches, report["texture"]["launches"]),
                         (ops_launches, {**report["probe"]["launches"],
                                         **{f"cli {k}": v["launches"]
                                            for k, v in report["cli"].items()
-                                           if isinstance(v, dict)}})):
+                                           if isinstance(v, dict)},
+                                        **report["orbit"]["launches"],
+                                        **report["interactive"]["launches"]})):
         for label, counts in paths.items():
             for name, n in counts.items():
                 into.setdefault(name, {})[label] = n

@@ -1,8 +1,11 @@
 """Command-line interface of the port (counterpart of ``raytracer_tpu/cli.py``:
-rendering, benchmarking, the debug probe and training).
+rendering, benchmarking, the fly-through, the interactive loop, the debug
+probe and training).
 
     python -m raytracer_tpu_torch.cli -c WORLD.json [-o out.png]
     python -m raytracer_tpu_torch.cli -c WORLD.json -b [--repeats N]
+    python -m raytracer_tpu_torch.cli -c WORLD.json --orbit N [--out-dir D]
+    python -m raytracer_tpu_torch.cli -c WORLD.json --interactive [-o F]
     python -m raytracer_tpu_torch.cli -c WORLD.json --debug-pixel X Y
     python -m raytracer_tpu_torch.cli -c WORLD.json --train N [--checkpoint P]
     python -m raytracer_tpu_torch.cli -c WORLD.json --train-until N \
@@ -20,6 +23,17 @@ reads (as the JAX package's accelerator engine does not),
 ``"torch"`` engine instead of the CUDA kernels, ``--device`` (default
 ``cuda``; there is no fallback to the CPU when CUDA is missing),
 ``--debug-pixel X Y`` the single-ray probe (``debug.debug_cast``).
+``--orbit N`` renders an N-frame turntable (``camera_motion.orbit_frames``,
+2 degrees a frame) to ``--out-dir`` (default ``frames``) as
+``frame_%04d.png``, printing ``FPS: x`` every ``SAMPLE_PERIOD`` frames (the
+render, the copy to the host and the PNG encode: the reference's overlay
+counts whole frames); ``--interactive`` renders to ``--out`` (default
+``frame.png``) and then reads commands from stdin, one a line: ``w``,
+``a``, ``s``, ``d`` move (``camera_motion.key_move``), ``mouse DX DY``
+looks (``mouse_look``), ``click X Y`` runs the probe at a pixel of the
+frame on the current camera without rendering again, ``quit``/``q``/``esc``
+ends the loop (as does the end of stdin); a move renders the frame again
+and prints ``frame: X ms (Y FPS)``, any other line prints ``? line``.
 Training: ``--train N`` / ``--train-until TOTAL`` SGD steps on materials
 and lights toward ``--target-png`` (or the scene rendered with ``kd *
 1.3``), ``--lr``, ``--checkpoint`` (resumed when it exists) written every
@@ -71,6 +85,18 @@ def build_parser() -> argparse.ArgumentParser:
              "bounce rounds on only the FRAC*T ray tiles that hold a primary "
              "hit (hits beyond the cap are dropped and counted); 0 = dense "
              "rounds")
+    p.add_argument(
+        "--orbit", type=int, default=0, metavar="N",
+        help="render an N-frame turntable fly-through to --out-dir, "
+             "printing FPS every 5 frames (the reference's overlay, "
+             "main.cc:106-200)")
+    p.add_argument(
+        "--interactive", action="store_true",
+        help="stdin-driven camera loop: lines 'w|a|s|d', 'mouse DX DY', "
+             "'click X Y' (debug probe), 'quit'; each move renders to --out "
+             "again (the reference's SDL loop without the window)")
+    p.add_argument("--out-dir", default="frames",
+                   help="--orbit frame directory")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.add_argument("--train", type=int, default=0, metavar="N",
@@ -101,6 +127,83 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trace the --train loop with torch.profiler and "
                         "write a Chrome trace to this directory")
     return p
+
+
+SAMPLE_PERIOD = 5  # frames per FPS sample (reference main.cc:21)
+
+
+class FpsWindow:
+    """Frames per second over ``SAMPLE_PERIOD``-frame windows, as the
+    reference's overlay counts them."""
+
+    def __init__(self):
+        self.count, self.t0 = 0, time.perf_counter()
+
+    def tick(self):
+        """Count one frame; the window's FPS when it closes, else None."""
+        self.count += 1
+        if self.count < SAMPLE_PERIOD:
+            return None
+        t1 = time.perf_counter()
+        fps = self.count / (t1 - self.t0)
+        self.count, self.t0 = 0, t1
+        return fps
+
+
+def _fps_loop(render_np, cameras, on_frame):
+    """Drive ``render_np(camera) -> numpy image`` over ``cameras``, calling
+    ``on_frame(i, image)`` and printing ``FPS: x`` over each
+    ``SAMPLE_PERIOD``-frame window, as the reference's overlay does.
+    Returns the last window's FPS (``None`` before the first)."""
+    window, fps = FpsWindow(), None
+    for i, cam in enumerate(cameras):
+        on_frame(i, render_np(cam))
+        closed = window.tick()
+        if closed is not None:
+            fps = closed
+            print(f"FPS: {fps:.1f}", flush=True)
+    return fps
+
+
+def _interactive(args, scene, camera, cfg, render_np) -> int:
+    """The reference's event loop (main.cc:81-208) driven by stdin lines."""
+    from . import camera_motion as cm
+    from .debug import debug_cast
+    from .pngio import write_png
+
+    out = args.out or "frame.png"
+    cam = camera
+    write_png(out, render_np(cam)[..., :3])
+    print("interactive: w/a/s/d, 'mouse DX DY', 'click X Y', 'quit'; "
+          f"frame -> {out}", flush=True)
+    for line in sys.stdin:
+        parts = line.strip().split()
+        if not parts:
+            continue
+        if parts[0] in ("quit", "q", "esc"):
+            break
+        try:
+            if parts[0] in ("w", "a", "s", "d"):
+                cam = cm.key_move(cam, parts[0])
+            elif parts[0] == "mouse" and len(parts) == 3:
+                cam = cm.mouse_look(cam, float(parts[1]), float(parts[2]))
+            elif parts[0] == "click" and len(parts) == 3:
+                x, y = int(parts[1]), int(parts[2])
+                if not (0 <= x < cfg.width and 0 <= y < cfg.height):
+                    raise ValueError
+                debug_cast(scene, cam, cfg, x, y)
+                continue
+            else:
+                raise ValueError
+        except ValueError:
+            print(f"? {line.strip()}", flush=True)
+            continue
+        t0 = time.perf_counter()
+        write_png(out, render_np(cam)[..., :3])
+        dt = time.perf_counter() - t0
+        print(f"frame: {dt * 1e3:.1f} ms ({1.0 / dt:.1f} FPS)", flush=True)
+    print("Exiting...")  # main.cc:205
+    return 0
 
 
 def tile_rows_for_dim(dim: int) -> int:
@@ -261,6 +364,28 @@ def main(argv=None) -> int:
 
     if args.train or args.train_until:
         return _train(args, scene, camera, cfg)
+
+    if args.orbit or args.interactive:
+        import os
+
+        from . import camera_motion as cm
+        from .render.engine import frame_to_u8
+
+        def render_np(cam):
+            with torch.no_grad():
+                return frame_to_u8(render_frame(scene, cam, cfg)).cpu().numpy()
+
+        if not args.orbit:
+            return _interactive(args, scene, camera, cfg, render_np)
+        os.makedirs(args.out_dir, exist_ok=True)
+
+        def save(i, img):
+            write_png(os.path.join(args.out_dir, f"frame_{i:04d}.png"),
+                      img[..., :3])
+
+        _fps_loop(render_np, cm.orbit_frames(camera, args.orbit), save)
+        print(f"wrote {args.orbit} frames to {args.out_dir}/")
+        return 0
 
     if args.bench:
         img = render_frame(scene, camera, cfg)  # warm-up: kernel build

@@ -1,7 +1,8 @@
 """Dependency-free PNG decode/encode (numpy + zlib).
 
-Counterpart of ``raytracer_tpu/pngio.py``, with the pure-Python scanline
-unfilter only (the JAX package's native fast path is not ported yet).
+Counterpart of ``raytracer_tpu/pngio.py``: the scanlines are unfiltered by
+the native library (``native.png_unfilter``, ``csrc/rtnative.c``) when it
+builds, else by the pure-Python loop ``_unfilter_py``.
 
 TPU-native replacement for the reference's libpng asset loader
 (reference: src/assets.cc:11-58), which normalizes palette / grayscale / 16-bit /
@@ -118,7 +119,11 @@ def read_png(path: str) -> np.ndarray:
     else:
         raise ValueError(f"{path}: unsupported bitdepth {bitdepth}")
 
-    out = _unfilter_py(raw, height, stride, bpp)
+    from . import native
+
+    out = native.png_unfilter(raw, height, stride, bpp)
+    if out is None:
+        out = _unfilter_py(raw, height, stride, bpp)
 
     # Expand to samples.
     if bitdepth in (1, 2, 4):

@@ -1,9 +1,9 @@
 """Batched ray-tracing math on torch tensors.
 
-Counterpart of ``raytracer_tpu/raymath.py``, reduced to what the port's
-render path uses.  Conventions are the JAX package's: ``THRESHOLD =
-1e-5`` is the universal epsilon, ``normalize`` returns the zero vector below
-it, quaternions are ``[x, y, z, w]``.
+Counterpart of ``raytracer_tpu/raymath.py``, name for name.  Conventions
+are the JAX package's: ``THRESHOLD = 1e-5`` is the universal epsilon,
+``normalize`` returns the zero vector below it, quaternions are ``[x, y,
+z, w]``.
 
 Everything stays exact float32: dot products and rotations are written out
 per component (no matmul, so no TF32 and no reduction-order surprises), in
@@ -12,6 +12,7 @@ the JAX package's left-to-right order.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 THRESHOLD = 1e-5
@@ -91,6 +92,10 @@ def refract(d, n, n1, n2):
     return d_len * out, tir
 
 
+IDENTITY_QUAT = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32)
+"""The identity rotation, on the CPU: callers move it with ``.to(device)``."""
+
+
 def quat_mul(a, b):
     ax, ay, az, aw = a.unbind(-1)
     bx, by, bz, bw = b.unbind(-1)
@@ -108,6 +113,11 @@ def quat_mul(a, b):
 def quat_conj(q):
     return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
                             device=q.device)
+
+
+def quat_normalize(q, eps=THRESHOLD):
+    """Unit quaternion, or zero where ``|q| <= eps`` (as :func:`normalize`)."""
+    return normalize(q, eps)
 
 
 def quat_to_mat(q):
@@ -134,6 +144,121 @@ def quat_rotate(q, v):
 
 def quat_rotate_inv(q, v):
     return quat_rotate(quat_conj(q), v)
+
+
+def quat_from_axis_angle(axis, theta):
+    """Rotation by ``theta`` (a Python float or a 0-d tensor) about the unit
+    ``axis``: ``[axis * sin(theta / 2), cos(theta / 2)]``, computed in
+    float32 on ``axis``'s device (a tensor ``theta``'s when ``axis`` is
+    not a tensor)."""
+    if not isinstance(axis, torch.Tensor):
+        axis = torch.tensor(axis, dtype=torch.float32, device=(
+            theta.device if isinstance(theta, torch.Tensor) else None))
+    axis = axis.to(torch.float32)
+    half = 0.5 * torch.as_tensor(theta, dtype=torch.float32,
+                                 device=axis.device)
+    return torch.cat([axis * torch.sin(half), torch.cos(half)[None]], dim=-1)
+
+
+# entity frames (reference: src/rayprimitives/entity.cu:5-23)
+
+def point_to_local(q, p, v):
+    return quat_rotate(q, v - p)
+
+
+def point_from_local(q, p, v):
+    return quat_rotate_inv(q, v) + p
+
+
+def vec_to_local(q, v):
+    return quat_rotate(q, v)
+
+
+def vec_from_local(q, v):
+    return quat_rotate_inv(q, v)
+
+
+# intersection tests
+
+def ray_plane(ro, rd, po, pn):
+    """Ray/plane (geometry.h:254-261); ``pn`` must be unit.  Returns ``(ok,
+    t)``."""
+    denom = dot(rd, pn)
+    ok = torch.abs(denom) >= THRESHOLD
+    t = dot(po - ro, pn) / torch.where(ok, denom, 1.0)
+    return ok, t
+
+
+def ray_triangle_areas(ro, rd, a, b, c):
+    """The reference's triangle test (geometry.h:275-290): hit the plane,
+    then accept iff the three sub-triangle areas sum to ~1 (tol 1e-5).
+    Returns ``(hit, t, uv)``, ``uv = (bary_b, bary_c)``; inputs broadcast,
+    ``rd`` unit."""
+    pn_raw = cross(b - a, c - a)
+    tri_area = norm(pn_raw)
+    pn = normalize(pn_raw)
+    ok, t = ray_plane(ro, rd, a, pn)
+    p = ro + t[..., None] * rd
+    inv_area = 1.0 / torch.where(tri_area > 0, tri_area, 1.0)
+    bary0 = norm(cross(c - p, b - p)) * inv_area
+    bary1 = norm(cross(c - p, a - p)) * inv_area
+    bary2 = norm(cross(a - p, b - p)) * inv_area
+    inside = torch.abs(bary0 + bary1 + bary2 - 1.0) <= THRESHOLD
+    hit = ok & inside & (tri_area > 0)
+    return hit, t, torch.stack([bary1, bary2], dim=-1)
+
+
+def ray_triangle_mt(ro, rd, a, b, c, tol=THRESHOLD):
+    """Moller-Trumbore triangle test, accepting ``u, v, 1-u-v >= -tol``.
+    Returns ``(hit, t, uv)``."""
+    e1 = b - a
+    e2 = c - a
+    pvec = cross(rd, e2)
+    det = dot(e1, pvec)
+    ok = torch.abs(det) >= 1e-12
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    tvec = ro - a
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1)
+    v = dot(rd, qvec) * inv_det
+    t = dot(e2, qvec) * inv_det
+    hit = ok & (u >= -tol) & (v >= -tol) & (u + v <= 1.0 + tol)
+    return hit, t, torch.stack([u, v], dim=-1)
+
+
+def ray_aabb(ro, rd, bmin, bmax, nondegenerate=True):
+    """Kay/Kajiya slab test (reference src/rayopt/bounding_box.cu:63-104).
+    Axes with ``rd == 0`` are skipped, as the reference's ``continue``
+    does.  Returns ``(hit, t_entry)``: ``t_entry`` is ``t_min`` if it is
+    >= 0, else ``t_max``; a hit also needs ``t_max >= THRESHOLD``."""
+    par = rd == 0.0
+    inv = 1.0 / torch.where(par, 1.0, rd)
+    t1 = (bmin - ro) * inv
+    t2 = (bmax - ro) * inv
+    tn = torch.where(par, -torch.inf, torch.minimum(t1, t2))
+    tf = torch.where(par, torch.inf, torch.maximum(t1, t2))
+    tmin = torch.amax(tn, dim=-1)
+    tmax = torch.amin(tf, dim=-1)
+    hit = (tmin <= tmax) & (tmax >= THRESHOLD) & nondegenerate
+    return hit, torch.where(tmin >= 0, tmin, tmax)
+
+
+def z_order_f32bits_np(center):
+    """The reference's Morton code (src/rayopt/z_order.cu:5-36) in numpy:
+    the raw IEEE-754 bits of the *negated* center interleaved x/y/z from
+    bit 31 down, 64 output bits.  Kept as the parity artifact; the LBVH
+    uses :func:`z_order_quantized`."""
+    inv = -np.asarray(center, dtype=np.float32)
+    bits = inv.view(np.uint32).astype(np.uint64)
+    srcs = [bits[..., 0], bits[..., 1], bits[..., 2]]
+    code = np.zeros(srcs[0].shape, dtype=np.uint64)
+    offs = [31, 31, 31]
+    for i in range(64):
+        sel = i % 3
+        code = (code << np.uint64(1)) | (
+            (srcs[sel] >> np.uint64(offs[sel])) & np.uint64(1))
+        offs[sel] -= 1
+    return code
 
 
 def z_order_quantized(center, scene_min, scene_max, bits=10):

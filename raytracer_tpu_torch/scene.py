@@ -155,3 +155,23 @@ def to_device(obj, device):
         else:
             kw[f.name] = _leaf_to_device(v, device)
     return type(obj)(**kw)
+
+
+def scene_summary(scene: Scene) -> str:
+    """One line of the scene's sizes (the JAX package's ``scene_summary``)."""
+    v = scene.verts.shape[0]
+    t = scene.tri_v.shape[0]
+    n = scene.inst_pos.shape[0]
+    w = scene.wtri_tri.shape[0]
+    lp = scene.lights.point_pos.shape[0]
+    ld = scene.lights.dir_dir.shape[0]
+    return (
+        f"Scene(verts={v}, tris={t}, meshes={scene.mesh_pos.shape[0]}, "
+        f"instances={n}, world_tris={w}, lights={lp}+{ld})"
+    )
+
+
+def tree_f32(x) -> np.ndarray:
+    """A leaf (numpy array or tensor on any device) as a float32 numpy
+    array."""
+    return _np(x).astype(np.float32, copy=False)

@@ -34,7 +34,8 @@ version's hits on every later round's rays (refracted rays inside glass
 boxes among them), the per-light frame equals the fused one, both
 engines' gradients agree; the synthetic worlds render the ``"torch"``
 engine's frames on the cull, the MXU cast and the walk, the forced cull
-the walk's."""
+the walk's.  The first ``--orbit`` camera (``camera_motion`` on the card)
+renders the ``"torch"`` engine's frame through one K1 and one K2 launch."""
 
 import os
 
@@ -1067,3 +1068,21 @@ def test_spp_backward_launches_no_any_hit_query(gpu_world):
     torch.cuda.synchronize()
     assert ce.bvh_occlude2.launches == n2
     assert ce.bvh_cast.launches == n1 + 4  # every sample's cast again
+
+
+def test_orbit_frame_cuda_matches_torch_engine(gpu_world):
+    """The first camera of ``--orbit`` (``camera_motion.orbit_frames``, on
+    the card): the kernels' frame against the ``"torch"`` engine's, one K1
+    and one K2 launch, the camera on the card."""
+    from raytracer_tpu_torch import camera_motion as cm
+
+    s, cam, cfg = gpu_world["scene"], gpu_world["cam"], gpu_world["cfg"]
+    cam0 = next(cm.orbit_frames(cam, 1))
+    assert cam0.rot.device == cam.rot.device
+    assert not torch.equal(cam0.rot, cam.rot)
+    n1, n2 = ce.bvh_cast.launches, ce.bvh_occlude2.launches
+    img = render_frame(s, cam0, cfg)
+    torch.cuda.synchronize()
+    assert (ce.bvh_cast.launches - n1, ce.bvh_occlude2.launches - n2) == (1, 1)
+    ref = render_frame(s, cam0, cfg.replace(engine="torch"))
+    assert float((img - ref).abs().max()) <= 1e-5

@@ -12,7 +12,9 @@ probe and training).
         --elastic R [--hang-timeout S]
 
 Flags: ``-c/--config`` world JSON, ``-o/--out`` PNG path, ``-b/--bench``
-time frames (prints ``Time: <ms>`` and one JSON line), ``--repeats``,
+time frames (prints ``Time: <ms>`` and one JSON line: the median of the
+``--repeats`` timed frames as ``value``, their minimum and 95th percentile
+beside it),
 ``--width``/``--height`` canvas overrides (the field of view is kept),
 ``-d/--dim`` the candidate-list cull's tile (``tile_rows = max(8,
 ceil8(d*d/128))``; the LBVH walk and the MXU cast do not read it),
@@ -38,7 +40,8 @@ Training: ``--train N`` / ``--train-until TOTAL`` SGD steps on materials
 and lights toward ``--target-png`` (or the scene rendered with ``kd *
 1.3``), ``--lr``, ``--checkpoint`` (resumed when it exists) written every
 ``--checkpoint-every`` steps; one ``train_step`` JSON line per step on
-stderr; ``--profile-dir`` traces the loop (``tracing.profile_trace``);
+stderr; ``--profile-dir`` traces the loop (``tracing.profile_trace``,
+with the port's ``rt.*`` spans);
 ``--elastic R`` runs the loop in a supervised worker process restarted up
 to R times on a crash or a ``--hang-timeout`` silence (``elastic.py``).
 For the elastic tests, ``RT_FAULT_AT_STEP`` / ``RT_HANG_AT_STEP`` make the
@@ -329,6 +332,7 @@ def main(argv=None) -> int:
                              hang_timeout_s=args.hang_timeout)
         return 0 if res.completed else 1
 
+    import numpy as np
     import torch
 
     from . import generate, to_device
@@ -403,13 +407,15 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 img = render_frame(scene, camera, cfg)
                 times.append((time.perf_counter() - t0) * 1e3)
-        ms = min(times)
+        ms = float(np.median(times))
         rays = cfg.width * cfg.height
         print(f"Time: {ms:.3f} ms")
         print(json.dumps({
             "metric": "frame_ms",
             "value": ms,
             "unit": "ms",
+            "min_ms": min(times),
+            "p95_ms": float(np.percentile(times, 95)),
             "config": args.config,
             "width": cfg.width,
             "height": cfg.height,

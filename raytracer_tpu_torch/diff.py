@@ -22,6 +22,7 @@ import torch
 from . import tree
 from .render.engine import render_frame, render_frame_sum, spp_jitter_grid
 from .scene import Camera, RenderConfig, Scene
+from .tracing import span
 
 
 def _trainable(x: torch.Tensor) -> torch.Tensor:
@@ -84,9 +85,10 @@ def make_loss_fn(scene: Scene, camera: Camera, cfg: RenderConfig, target,
 def _grad_leaves(value, leaves, grad_output=None) -> list:
     """``d value / d leaves`` (pulled back from ``grad_output``), zeros for
     a leaf the value does not depend on (``kt`` of an opaque world), as
-    under ``jax.grad``."""
-    grads = torch.autograd.grad(value, leaves, grad_outputs=grad_output,
-                                allow_unused=True)
+    under ``jax.grad``.  The backward is one ``rt.backward`` span."""
+    with span("rt.backward"):
+        grads = torch.autograd.grad(value, leaves, grad_outputs=grad_output,
+                                    allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)]
 
@@ -171,7 +173,9 @@ def sgd_step(params, grads, lr: float):
 
 def train_step(scene: Scene, camera: Camera, cfg: RenderConfig, target,
                params, lr: float = 1e-2):
-    """One optimization step: ``(loss, grads, new_params)``."""
-    value = make_loss_fn(scene, camera, cfg, target)(params)
-    grads = grad_of(value, params)
-    return value.detach(), grads, sgd_step(params, grads, lr)
+    """One optimization step: ``(loss, grads, new_params)``, one ``rt.step``
+    span."""
+    with span("rt.step"):
+        value = make_loss_fn(scene, camera, cfg, target)(params)
+        grads = grad_of(value, params)
+        return value.detach(), grads, sgd_step(params, grads, lr)

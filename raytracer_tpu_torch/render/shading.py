@@ -38,6 +38,7 @@ import torch
 
 from .. import raymath as rm
 from ..scene import Materials, RenderConfig, Scene
+from ..tracing import span
 from .cast import CastFn, Hit, hit_shading_attrs
 from .geometry import WorldGeometry
 
@@ -284,8 +285,11 @@ def march_transmissive(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
                                     origin.shape[:-1])
     alive = active
     for _ in range(cfg.shadow_steps):
-        if cfg.early_exit and not bool(alive.any()):
-            break
+        if cfg.early_exit:
+            with span("rt.sync"):
+                live = bool(alive.any())
+            if not live:
+                break
         hit = cast_fn(cur_o, dir_unit)
         h_norm, h_mat, _ = hit_shading_attrs(geom, hit)
         step_hit = alive & hit.valid

@@ -8,6 +8,9 @@ its directory, which TensorBoard and ``chrome://tracing`` read;
 ``FrameStats`` times steps on the host clock and logs each.  A host clock
 only times device work that ends in a synchronisation: a training step does
 (it reads the loss back), a bare ``render_frame`` on the card does not.
+``span`` marks a layer of the port (``rt.frame``, ``rt.prep``, ``rt.cast``,
+...) as a profiler event, on the clock of the card's activity in the same
+trace; with no profiler recording it does nothing.
 """
 
 from __future__ import annotations
@@ -20,11 +23,26 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
+
+# one shared do-nothing span: no profiler, no cost beyond the flag's read
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
 
 def log(event: str, **fields) -> None:
     rec = {"t": time.monotonic(), "event": event}
     rec.update(fields)
     print(json.dumps(rec), file=sys.stderr, flush=True)
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` span named ``name`` while a
+    profiler records on this thread (host-side only: it launches nothing on
+    the card), else one shared ``nullcontext``."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -33,7 +51,6 @@ def profile_trace(logdir: str = "trace"):
     ``logdir/trace_<pid>_<ns>.json`` (Chrome trace format) on exit, also
     when the block raises; yields ``logdir``.  An error of the profiler
     itself propagates."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

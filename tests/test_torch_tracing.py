@@ -7,10 +7,18 @@
   the frame's ops, logs ``profile_trace_written``, writes the trace when
   the block raises and lets the error through; ``--profile-dir`` traces
   the CLI's training loop.
+* ``span``: the shared null context and no record-function op without a
+  profiler; under one, the port's ``rt.*`` spans nest as its layers do
+  (a frame's prep, casts and shading; a bounce world's queue and early
+  exits a round; a step's frame and backward), and the frame's pixels and
+  the step's gradients are bit for bit those of an untraced run.
+* ``cli -b`` reports the median of its repeats, with their minimum and
+  95th percentile beside it.
 """
 
 import json
 import os
+import types
 
 import pytest
 import torch
@@ -18,15 +26,18 @@ import torch
 from raytracer_tpu import tracing as jtracing
 
 import raytracer_tpu_torch as rtt
-from raytracer_tpu_torch import cli, tracing
+from raytracer_tpu_torch import cli, diff, tracing, tree
 from raytracer_tpu_torch.builder import scale_camera
-from raytracer_tpu_torch.render.engine import render_frame
+from raytracer_tpu_torch.render.engine import (render_frame,
+                                               render_frame_with_stats)
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TERRAIN8 = os.path.join(REPO, "raytracer_tpu_torch", "worlds",
                         "terrain8.json")
+STRESS = os.path.join(REPO, "raytracer_tpu_torch", "worlds",
+                      "terrain8_stress.json")
 
 
 class _Clock:
@@ -69,12 +80,21 @@ def test_frame_stats_total_and_mean_match_jax(monkeypatch, capsys,
     assert stats["port"][1] == pytest.approx(1e3 * sum(seconds))
 
 
-@pytest.fixture(scope="module")
-def small():
-    w = rtt.generate(TERRAIN8)
+def _world(path):
+    w = rtt.generate(path)
     scene = rtt.to_device(w.scene, "cpu")
     cam = rtt.to_device(scale_camera(w.camera, 32, w.config.width), "cpu")
     return scene, cam, w.config.replace(width=32, height=24, engine="cuda")
+
+
+@pytest.fixture(scope="module")
+def small():
+    return _world(TERRAIN8)
+
+
+@pytest.fixture(scope="module")
+def stress():
+    return _world(STRESS)
 
 
 def _trace_names(logdir):
@@ -117,3 +137,134 @@ def test_cli_profile_dir_traces_the_training_loop(tmp_path, capsys):
     names = _trace_names(logdir)
     assert "aten::index_add_" in names  # the material rows' backward
     assert '"profile_trace_written"' in capsys.readouterr().err
+
+
+def _refuse(*_a, **_k):
+    raise AssertionError("a span called the profiler with no profiler on")
+
+
+def test_span_is_the_shared_null_context_without_a_profiler(small,
+                                                            monkeypatch):
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new",
+                        _refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    a, b = tracing.span("rt.frame"), tracing.span("rt.cast")
+    assert a is b
+    with a:
+        pass
+    # a whole frame, every span of it, calls neither
+    img, stats = render_frame_with_stats(*small)
+    assert img.shape == (24, 32, 4) and int(stats["dropped"]) == 0
+
+
+def _traced(fn):
+    """``fn()``'s result and its ``rt.*`` spans ``(name, start, end,
+    thread)`` under ``torch.profiler`` (host activity).  Read from the
+    profiler's raw events: ``prof.events()`` builds a tree of the plain
+    walks' million ops first, which takes minutes here."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+                  e.start_thread_id())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.name().startswith("rt.")]
+
+
+def _named(spans, name):
+    return [s for s in spans if s[0] == name]
+
+
+def _inside(inner, outer):
+    return (inner[3] == outer[3] and outer[1] <= inner[1]
+            and inner[2] <= outer[2])
+
+
+def test_a_frame_is_one_span_holding_prep_casts_and_shading(small):
+    scene, cam, cfg = small
+    (img, _), spans = _traced(lambda: render_frame_with_stats(scene, cam,
+                                                              cfg))
+    (frame,) = _named(spans, "rt.frame")
+    (prep,) = _named(spans, "rt.prep")
+    # terrain8 is opaque: one round, its closest hit and the fused shadow
+    # query (K2's occlude2), no child queue and no early exit
+    assert len(_named(spans, "rt.cast")) == 2
+    assert len(_named(spans, "rt.shade")) == 1
+    assert not _named(spans, "rt.queue") and not _named(spans, "rt.sync")
+    assert all(_inside(s, frame) for s in spans if s is not frame)
+    # the shadow query is cast from inside shading; prep precedes both
+    (shade,) = _named(spans, "rt.shade")
+    first, second = sorted(_named(spans, "rt.cast"), key=lambda s: s[1])
+    assert not _inside(first, shade) and _inside(second, shade)
+    assert prep[2] <= first[1]
+    untraced, _ = render_frame_with_stats(scene, cam, cfg)
+    assert torch.equal(img, untraced)
+
+
+def test_a_bounce_frame_adds_the_queue_and_an_early_exit_a_round(stress):
+    scene, cam, cfg = stress
+    depth = cfg.recurse_depth
+    assert depth == 2 and cfg.early_exit and cfg.any_reflective
+    (img, stats), spans = _traced(lambda: render_frame_with_stats(
+        scene, cam, cfg))
+    (frame,) = _named(spans, "rt.frame")
+    assert all(_inside(s, frame) for s in spans if s is not frame)
+    # one early-exit read before each round after the primary one
+    syncs = _named(spans, "rt.sync")
+    assert len(syncs) == depth
+    shades = sorted(_named(spans, "rt.shade"), key=lambda s: s[1])
+    assert len(shades) == depth + 1
+    assert all(shades[r][2] <= syncs[r][1] <= shades[r + 1][1]
+               for r in range(depth))
+    # after each round's shading: its children spawned (all rounds but the
+    # last), and the round added into the frame (all after the primary)
+    # with the next queue parked, before the next round's early exit
+    queues = _named(spans, "rt.queue")
+    ends = [s[1] for s in syncs] + [frame[2]]
+    per_round = [sum(shades[r][2] <= q[1] and q[2] <= ends[r]
+                     for q in queues) for r in range(depth + 1)]
+    assert per_round == [2] * depth + [1] and len(queues) == 2 * depth + 1
+    untraced, _ = render_frame_with_stats(scene, cam, cfg)
+    assert torch.equal(img, untraced) and int(stats["dropped"]) == 0
+
+
+def test_a_step_is_one_span_holding_its_frame_and_backward(small):
+    scene, cam, cfg = small
+    cfg = cfg.replace(early_exit=False)
+    target = torch.zeros(cfg.height, cfg.width, 4)
+
+    def step():
+        params = diff.trainable_params(scene, cam)
+        return diff.train_step(scene, cam, cfg, target, params, lr=1e-2)
+
+    (loss, grads, _), spans = _traced(step)
+    (st,) = _named(spans, "rt.step")
+    (frame,) = _named(spans, "rt.frame")
+    (bwd,) = _named(spans, "rt.backward")
+    assert _inside(frame, st) and _inside(bwd, st)
+    assert frame[2] <= bwd[1]
+    loss0, grads0, _ = step()
+    assert torch.equal(loss, loss0)
+    for g, g0 in zip(tree.leaves(grads), tree.leaves(grads0)):
+        assert torch.equal(g, g0)
+
+
+def test_cli_bench_reports_the_median_min_and_p95(tmp_path, monkeypatch,
+                                                  capsys):
+    ms = [4.0, 1.0, 3.0, 10.0, 2.0]
+    stamps = []
+    for t0, dt in zip(range(0, 100, 20), ms):
+        stamps += [float(t0), t0 + dt * 1e-3]
+    monkeypatch.setattr(cli, "time",
+                        types.SimpleNamespace(perf_counter=_Clock(stamps)))
+    assert cli.main(["-c", TERRAIN8, "--width", "16", "--height", "16",
+                     "--device", "cpu", "-b", "--repeats", "5"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    rec = json.loads(out[-1])
+    assert rec["repeats"] == 5
+    assert rec["value"] == pytest.approx(3.0)  # the median
+    assert rec["min_ms"] == pytest.approx(1.0)
+    # numpy's linear 95th percentile: 4 + 0.8 * (10 - 4)
+    assert rec["p95_ms"] == pytest.approx(8.8)
+    assert out[-2] == "Time: 3.000 ms"
+    assert rec["primary_mrays_per_s"] == pytest.approx(16 * 16 / 3.0 / 1e3)

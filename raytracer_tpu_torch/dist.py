@@ -65,7 +65,7 @@ from .builder import scale_camera
 from .cube_world import generate
 from .diff import grad_of, merge_params, sgd_step, trainable_params
 from .render.cast import Hit
-from .render.engine import (make_cast, prepare_cast, render_rays,
+from .render.engine import (make_cast, prepared, render_rays,
                             render_rays_stats, spp_jitter_grid, sum_samples)
 from .render.geometry import camera_rays, expand_geometry
 from .scene import Camera, RenderConfig, Scene, _np, to_device
@@ -257,12 +257,11 @@ def _render_rows(scene: Scene, camera: Camera, cfg: RenderConfig, hp: int,
     ``render_frame`` (``spp_jitter_grid``, ``(off + shift) % 1``), over cast
     tables built once, through the engine's sweep (``sum_samples``: each
     sample checkpointed in grad mode)."""
-    geom = expand_geometry(scene)
+    geom, aux = prepared(scene, cfg)
     if cfg.spp <= 1:
         ro, rd = _padded_rays(camera, cfg, hp)
-        return render_rays(scene, geom, make_cast(scene, geom, cfg), cfg,
-                           ro[rows], rd[rows], pixel_angle)
-    aux = prepare_cast(scene, geom, cfg)
+        return render_rays(scene, geom, make_cast(scene, geom, cfg, aux=aux),
+                           cfg, ro[rows], rd[rows], pixel_angle)
     offs, shift = spp_jitter_grid(cfg.spp, cfg.width, cfg.height,
                                   camera.pos.device)
 
@@ -469,6 +468,7 @@ def make_geom_sharded_cast(scene: Scene, cfg: RenderConfig, shard: dict,
     (the JAX function asserts its scalar Pallas cast)."""
     _need_scalar(cfg)
     local = _local_scene(scene, shard)
+    # uncached (not engine.prepared): each call builds a new local scene
     inner = make_cast(local, expand_geometry(local), cfg)
     base = shard["wtri_base"]
 
@@ -502,6 +502,7 @@ def geom_sharded_render_rays(scene: Scene, cfg: RenderConfig, shard: dict,
     (``expand_geometry(scene)``), since the merged hits carry GLOBAL
     world-triangle ids (the edge-aware band reads ``band_tbl[hit.wtri]``)."""
     cast = make_geom_sharded_cast(scene, cfg, shard, mesh)
+    # uncached, as the cast's: each call builds a new local scene
     img, _ = render_rays_stats(scene, expand_geometry(scene), cast, cfg,
                                ro_b, rd_b, pixel_angle)
     return img
@@ -629,6 +630,7 @@ def make_ring_geom_cast(scene: Scene, cfg: RenderConfig, shard: dict,
         sh = shard
         for step in range(n):
             local = _local_scene(scene, sh)
+            # uncached: each call builds a new local scene
             h = make_cast(local, expand_geometry(local), cfg)(o, d)
             now = (torch.where(h.valid, h.t, torch.inf),
                    h.wtri + sh["wtri_base"], h.uv, h.normal, h.mat)

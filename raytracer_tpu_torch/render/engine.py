@@ -32,7 +32,8 @@ backward and leaves the forward frame bit for bit as it is.
 At ``spp > 1`` a frame is the mean of ``spp`` sample frames, each through
 jittered sub-pixel rays (``spp_jitter_grid``: R2 offsets plus a per-pixel
 toroidal shift), summed by ``sum_samples`` over cast tables built once a
-frame (``prepare_cast``).  Each sample runs under a
+geometry (``prepared``: scene prep, kept across the frames and steps of
+one geometry).  Each sample runs under a
 ``torch.utils.checkpoint`` whose backward recomputes it, so reverse-mode
 memory does not grow with spp beyond its shadow masks (1 bit a ray and
 query), which the recompute replays (``shading.shadow_masks``) instead of
@@ -44,6 +45,7 @@ on the 1024-ray tiles kept by one probe of the pixel-centre frame
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -425,6 +427,75 @@ def prepare_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig):
     return cuda_engine.prepare_cast(scene, geom, cfg)
 
 
+# What scene prep reads: every Scene leaf that expand_geometry and the table
+# builds touch, and the cfg fields that choose the tables.  Materials,
+# lights, ambience and the camera are not among them.
+_PREP_LEAVES = ("verts", "norms", "tri_v", "tri_mat", "tri_coord_degenerate",
+                "mesh_pos", "mesh_rot", "mesh_tri_start", "mesh_tri_count",
+                "inst_pos", "inst_rot", "inst_mesh", "wtri_inst", "wtri_tri")
+_PREP_CFG = ("pallas_kernel", "pallas_traversal", "edge_aware_grads",
+             "texture_mapping", "max_tris_per_mesh")
+
+
+@dataclass
+class _PrepEntry:
+    refs: list  # weak references to the _PREP_LEAVES tensors
+    versions: list  # their _version at the build
+    opts: tuple  # the _PREP_CFG values
+    geom: WorldGeometry
+    aux: object
+
+
+_prep_entry: Optional[_PrepEntry] = None
+
+
+def prepared(scene: Scene, cfg: RenderConfig):
+    """Scene prep, ``(geom, aux)``: :func:`expand_geometry` and
+    :func:`prepare_cast`, in one ``rt.prep`` span, kept across calls on one
+    geometry.  A call whose geometry leaves are the same tensors at the
+    same ``_version`` (so no in-place edit since) and whose table options
+    are equal gets the kept pair back and launches nothing; any other call
+    builds anew and keeps that build in place of the last (one entry).
+    When a geometry leaf requires grad, the build runs every call and is
+    not kept: the reparam rule's graph and ``expand_geometry``'s must run
+    through ``geom``.  Nothing writes into a kept ``geom`` or ``aux``.  An
+    edit that bypasses the version counter (through ``.data`` or a numpy
+    view) is not seen: rebuild the leaf, or :func:`clear_prepared`.
+    ``prepared.hits`` and ``prepared.builds`` count the calls of each
+    kind."""
+    global _prep_entry
+    with span("rt.prep"):
+        leaves = [getattr(scene, k) for k in _PREP_LEAVES]
+        keep = not any(x.requires_grad for x in leaves)
+        if keep:
+            versions = [x._version for x in leaves]
+            opts = tuple(getattr(cfg, k) for k in _PREP_CFG)
+            e = _prep_entry
+            if (e is not None and e.opts == opts and e.versions == versions
+                    and all(r() is x for r, x in zip(e.refs, leaves))):
+                prepared.hits += 1
+                return e.geom, e.aux
+            # dropped before the build, so that two builds are never held
+            _prep_entry = None
+        prepared.builds += 1
+        geom = expand_geometry(scene)
+        aux = prepare_cast(scene, geom, cfg)
+        if keep:
+            _prep_entry = _PrepEntry([weakref.ref(x) for x in leaves],
+                                     versions, opts, geom, aux)
+        return geom, aux
+
+
+prepared.hits = 0  # calls answered by the kept entry
+prepared.builds = 0  # calls that built (misses and grad-carrying geometry)
+
+
+def clear_prepared() -> None:
+    """Drop :func:`prepared`'s kept entry (its counters stay)."""
+    global _prep_entry
+    _prep_entry = None
+
+
 def make_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig,
               aux=None) -> CastFn:
     """The engine's cast (``raytracer_tpu/render/engine.py`` ``make_cast``)
@@ -615,9 +686,7 @@ def render_frame_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig):
     ``rt.frame`` span, its scene prep (world geometry, the cast's tables)
     one ``rt.prep`` span in it."""
     with span("rt.frame"):
-        with span("rt.prep"):
-            geom = expand_geometry(scene)
-            aux = prepare_cast(scene, geom, cfg)
+        geom, aux = prepared(scene, cfg)
         if cfg.spp > 1:
             # the mean of spp jittered samples; spp = 1 renders the pixel
             # corners, as the reference does
@@ -650,9 +719,7 @@ def render_frame_sum(scene: Scene, camera: Camera, cfg: RenderConfig, offs,
     ``remat=False`` keeps every sample's intermediates (no checkpoint).
     ``with_stats`` also returns ``{"dropped": i32}``, the probe's drops
     counted once a sample."""
-    with span("rt.prep"):
-        geom = expand_geometry(scene)
-        aux = prepare_cast(scene, geom, cfg)
+    geom, aux = prepared(scene, cfg)
     _, shift = spp_jitter_grid(2, cfg.width, cfg.height, camera.pos.device)
     lane, probe_drops = _spp_lane(scene, geom, aux, camera, cfg)
     acc, drops = _scan_samples(scene, geom, aux, camera, cfg, offs, shift,
@@ -716,8 +783,8 @@ def auto_tile_caps(scene: Scene, camera: Camera, cfg: RenderConfig,
     ``render_frame_with_stats``."""
     cfg1 = cfg.replace(spp=1, static_tile_cap=0.0, wavefront_tile_cap=0.0,
                        child_tile_cap=0.0)
-    geom = expand_geometry(scene)
-    cast_fn = make_cast(scene, geom, cfg1)
+    geom, aux = prepared(scene, cfg1)
+    cast_fn = make_cast(scene, geom, cfg1, aux=aux)
     occ, dil, _, spawn = _probe_tile_occupancy(cast_fn, camera, cfg1,
                                                scene=scene, geom=geom)
     n_occ = int(occ.sum())

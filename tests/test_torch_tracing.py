@@ -10,8 +10,11 @@
 * ``span``: the shared null context and no record-function op without a
   profiler; under one, the port's ``rt.*`` spans nest as its layers do
   (a frame's prep, casts and shading; a bounce world's queue and early
-  exits a round; a step's frame and backward), and the frame's pixels and
-  the step's gradients are bit for bit those of an untraced run.
+  exits a round; a step's frame and backward; a glass world's shadow
+  march, its casts and early exits), and the frame's pixels and the
+  step's gradients are bit for bit those of an untraced run.
+* the march's readers (``rtbench/metrics/march_*.frame.py``) on a
+  synthetic stretch.
 * ``cli -b`` reports the median of its repeats, with their minimum and
   95th percentile beside it.
 """
@@ -30,6 +33,8 @@ from raytracer_tpu_torch import cli, diff, tracing, tree
 from raytracer_tpu_torch.builder import scale_camera
 from raytracer_tpu_torch.render.engine import (render_frame,
                                                render_frame_with_stats)
+from rtbench import spec
+from rtbench import trace as rtrace
 
 torch.set_num_threads(2)
 
@@ -38,6 +43,8 @@ TERRAIN8 = os.path.join(REPO, "raytracer_tpu_torch", "worlds",
                         "terrain8.json")
 STRESS = os.path.join(REPO, "raytracer_tpu_torch", "worlds",
                       "terrain8_stress.json")
+MIXED = os.path.join(REPO, "raytracer_tpu_torch", "worlds",
+                     "terrain8_mixed.json")
 
 
 class _Clock:
@@ -95,6 +102,11 @@ def small():
 @pytest.fixture(scope="module")
 def stress():
     return _world(STRESS)
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    return _world(MIXED)
 
 
 def _trace_names(logdir):
@@ -226,6 +238,85 @@ def test_a_bounce_frame_adds_the_queue_and_an_early_exit_a_round(stress):
     assert per_round == [2] * depth + [1] and len(queues) == 2 * depth + 1
     untraced, _ = render_frame_with_stats(scene, cam, cfg)
     assert torch.equal(img, untraced) and int(stats["dropped"]) == 0
+
+
+@pytest.mark.parametrize("name", ["small", "stress"])
+def test_no_march_opens_in_an_opaque_or_mirror_world(name, request):
+    scene, cam, cfg = request.getfixturevalue(name)
+    assert not cfg.any_refractive
+    _, spans = _traced(lambda: render_frame_with_stats(scene, cam, cfg))
+    assert _named(spans, "rt.shade") and not _named(spans, "rt.march")
+
+
+def test_a_glass_frame_marches_in_one_span_a_light_and_round(mixed):
+    """Each round's shading marches once a light, inside its ``rt.shade``;
+    each march holds its closest-hit casts, at most ``shadow_steps``, and
+    before each an early exit, one more where no shadow ray walked on."""
+    scene, cam, cfg = mixed
+    assert cfg.any_refractive and cfg.any_reflective and cfg.early_exit
+    (img, stats), spans = _traced(lambda: render_frame_with_stats(
+        scene, cam, cfg))
+    lights = scene.lights.point_pos.shape[0] + scene.lights.dir_dir.shape[0]
+    shades = _named(spans, "rt.shade")
+    marches = _named(spans, "rt.march")
+    assert len(shades) == cfg.recurse_depth + 1 and lights == 2
+    assert len(marches) == lights * len(shades)
+    assert all(sum(_inside(m, s) for s in shades) == 1 for m in marches)
+    casts, syncs = _named(spans, "rt.cast"), _named(spans, "rt.sync")
+    steps = []
+    for m in marches:
+        mc = [c for c in casts if _inside(c, m)]
+        ms = [y for y in syncs if _inside(y, m)]
+        assert 1 <= len(mc) <= cfg.shadow_steps
+        assert len(ms) - len(mc) in (0, 1)
+        steps.append(len(mc))
+    # the round's own cast is outside the march; the walk's steps are not
+    assert len(casts) == len(shades) + sum(steps)
+    assert max(steps) >= 2  # some shadow ray went through glass
+    untraced, _ = render_frame_with_stats(scene, cam, cfg)
+    assert torch.equal(img, untraced) and int(stats["dropped"]) == 0
+
+
+def _march_stretch():
+    """Two items in [0, 1000] us.  Main thread: shading 100-400 holding a
+    march 110-300 with two casts (120-150, 200-230) and an early exit
+    (160-170); a round's cast 320-350 outside the march; a second march
+    500-600 with one cast 510-540.  Autograd's thread: a cast 130-140
+    during the first march, not the march's."""
+    main, other = 1, 7
+    rt = [(100, 400, "rt.shade", main), (110, 300, "rt.march", main),
+          (120, 150, "rt.cast", main), (160, 170, "rt.sync", main),
+          (200, 230, "rt.cast", main), (320, 350, "rt.cast", main),
+          (500, 600, "rt.march", main), (510, 540, "rt.cast", main),
+          (130, 140, "rt.cast", other)]
+    calls = [(125, 126, "cudaLaunchKernel", main),
+             (180, 181, "cudaLaunchKernel", main),
+             (135, 136, "cudaLaunchKernel", other),
+             (330, 331, "cudaLaunchKernel", main),
+             (550, 551, "cudaMemsetAsync", main)]
+    host = [(float(a), float(b), n, t) for a, b, n, t in rt + calls]
+    return rtrace.Stretch(start=0.0, end=1000.0, items=2, ops=[], host=host)
+
+
+def test_the_march_readers_on_a_synthetic_stretch():
+    st = _march_stretch()
+
+    def read(name):
+        return spec.metric_reader(name).read(st)
+
+    # three casts open inside a march on its thread, over two items
+    assert read("march_steps.frame") == pytest.approx(3 / 2)
+    # self time: 190 - (30 + 10 + 30) and 100 - 30, us, over two items
+    assert read("march_ms.frame") == pytest.approx((120 + 70) * 1e-3 / 2)
+    # launch calls inside a march, on any thread
+    assert read("march_launches.frame") == pytest.approx(4 / 2)
+    # shading's self time no longer holds the march's glue
+    assert read("shade_ms.frame") == pytest.approx((300 - 190 - 30) * 1e-3
+                                                   / 2)
+    st.host = [h for h in st.host if h[2] != "rt.march"]
+    for name in ("march_steps.frame", "march_ms.frame",
+                 "march_launches.frame"):
+        assert read(name) is None
 
 
 def test_a_step_is_one_span_holding_its_frame_and_backward(small):

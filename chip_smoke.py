@@ -305,6 +305,7 @@ STEP_REPS = 3  # ... of fwd+bwd steps
 # correctness check already): oracles, not contenders
 PLAIN_REPS = 1
 ATOL_FRAME = 1e-5
+MARCH_ULPS = 2  # bvh_march against the loop: only powf may round otherwise
 # cuda vs torch engine gradients: the hits are identical, so only the
 # order of the atomic sums in the gather backward differs
 RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-6
@@ -1291,8 +1292,9 @@ def _kernel_wrappers():
     from raytracer_tpu_torch.render import cull, mxu
 
     return {"bvh_cast": ce.bvh_cast, "bvh_occlude2": ce.bvh_occlude2,
-            "bvh_occlude": ce.bvh_occlude, "cull_cast": cull.cull_cast,
-            "cull_occlude": cull.cull_occlude, "mxu_cast": mxu.mxu_cast}
+            "bvh_occlude": ce.bvh_occlude, "bvh_march": ce.bvh_march,
+            "cull_cast": cull.cull_cast, "cull_occlude": cull.cull_occlude,
+            "mxu_cast": mxu.mxu_cast}
 
 
 def _counted(label, fn, used):
@@ -1327,6 +1329,75 @@ def _frame_checks(label, img, ref, size, atol=ATOL_FRAME):
     return diff
 
 
+def _march_checks(label, scene, geom, data, cfg, waves):
+    """The fused march (``bvh_march``, one launch) against the loop of
+    torch ops over K1 (``shading.march_steps``) on each round's rays,
+    for the point light (``max_t [R]``) and the directional one (+inf),
+    within ``MARCH_ULPS`` float32 steps; the first round's point-light
+    march timed, kernel and loop, with its byte bound.  ``waves``: the
+    rounds' queues (``engine.radiance``'s ``on_round``)."""
+    from raytracer_tpu_torch import raymath as rm
+    from raytracer_tpu_torch.probe_kernels import float32_steps
+    from raytracer_tpu_torch.render import cuda_engine as ce
+    from raytracer_tpu_torch.render.shading import march_steps
+
+    cast = ce.make_cuda_cast(data, cfg)
+    kt, steps = scene.materials.kt, cfg.shadow_steps
+    rec = {"ulps": 0, "max_abs_err": 0.0, "marches": []}
+    with torch.no_grad():
+        for i, w in enumerate(waves):
+            hk = ce.bvh_cast(torch.where(w.active[:, None], w.o,
+                                         1e30).contiguous(),
+                             w.d.contiguous(), data)
+            active = w.active & hk.valid
+            pos = w.o + torch.where(hk.valid, hk.t, 1.0)[:, None] * w.d
+            disp = scene.lights.point_pos[0] - pos
+            lights = (("point", rm.normalize(disp), rm.norm(disp),
+                       scene.lights.point_col[0]),
+                      ("directional", rm.normalize(
+                          -scene.lights.dir_dir[0]), float("inf"),
+                       scene.lights.dir_col[0]))
+            for light, dirn, max_t, col in lights:
+                args = (pos.contiguous(), dirn.contiguous(), max_t, col,
+                        active)
+                n = ce.bvh_march.launches
+                rv_k = cast.march(*args, kt, steps)
+                rv_p, plain_ms = _timed(lambda: march_steps(
+                    cast, geom, scene.materials, *args, steps, False))
+                ulps = float32_steps(rv_k, rv_p)
+                if ce.bvh_march.launches - n != 1 or ulps > MARCH_ULPS:
+                    raise AssertionError(
+                        f"{label} round {i} {light}: bvh_march "
+                        f"{ulps} float32 steps off the loop "
+                        f"({ce.bvh_march.launches - n} launches)")
+                rec["ulps"] = max(rec["ulps"], ulps)
+                rec["max_abs_err"] = max(rec["max_abs_err"], float(
+                    (rv_k - rv_p).abs().max()))
+                rec["marches"].append({
+                    "round": i, "light": light, "lanes": pos.shape[0],
+                    "active": int(active.sum()), "ulps": ulps,
+                    "values_off": int((rv_k != rv_p).sum())})
+                if i == 0 and light == "point":
+                    def fused():
+                        return cast.march(*args, kt, steps)
+                    rec["ms"] = _ms(fused)
+                    rec["device_ms"] = _device_ms(fused)
+                    rec["plain_ms"] = plain_ms
+                    rec["bound"] = _bound(_nbytes(*args[:3], active,
+                                                  rv_k), 0)
+                    rec["bound"]["rays"] = pos.shape[0]
+    print(f"{label}: bvh_march == loop within {rec['ulps']} float32 "
+          f"steps on {len(rec['marches'])} marches (values off: "
+          f"{[m['values_off'] for m in rec['marches']]}; active lanes "
+          f"{[m['active'] for m in rec['marches']]} of "
+          f"{rec['bound']['rays']}); round 0 point light "
+          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}; the "
+          f"loop {rec['plain_ms']:.3f} ms once), bound "
+          f"{rec['bound']['bound_ms']:.4f} ms "
+          f"({rec['bound']['bytes']} B)")
+    return rec
+
+
 def _bounces(dev, smi):
     """Phases 19-22: the bounce rounds.  terrain8_stress (reflective: the
     pixel-aligned stream, K1 and K2 in every round) and terrain8_mixed
@@ -1345,7 +1416,7 @@ def _bounces(dev, smi):
     from raytracer_tpu_torch.render.geometry import expand_geometry
     from raytracer_tpu_torch.render.shading import shadow_rays
 
-    out = {"worlds": {}, "steps": {}, "synth": {}}
+    out = {"worlds": {}, "steps": {}, "synth": {}, "march": {}}
     main, big = SIZES[0], SIZES[-1]
     inf = float("inf")
 
@@ -1379,8 +1450,12 @@ def _bounces(dev, smi):
         return hk
 
     # ---- phases 19-20: the two bounce terrains ------------------------------
+    # the mixed frame marches in the fused kernel, its step (under grad) in
+    # the loop of K1 casts
     used_of = {"terrain8_stress": ("bvh_cast", "bvh_occlude2"),
-               "terrain8_mixed": ("bvh_cast",)}
+               "terrain8_mixed": ("bvh_cast", "bvh_march")}
+    step_used_of = {"terrain8_stress": ("bvh_cast", "bvh_occlude2"),
+                    "terrain8_mixed": ("bvh_cast",)}
     for name, path in (("terrain8_stress", WORLD_STRESS),
                        ("terrain8_mixed", WORLD_MIXED)):
         scene, cfg, cams = world(path)
@@ -1410,6 +1485,10 @@ def _bounces(dev, smi):
             r = rec[key] = {"launches": counts, "live_rays": live,
                             "queue": [w.active.shape[0] for w in waves],
                             "dropped": 0}
+            if mixed:
+                out["march"][key] = _march_checks(f"{name} {key}", scene,
+                                                  geom, data, c, waves)
+                out["march"][key]["frame_launches"] = counts["bvh_march"]
             if s == main:
                 t0 = time.perf_counter()
                 ref = eng.render_frame(scene, cams[s], c.replace(
@@ -1509,7 +1588,7 @@ def _bounces(dev, smi):
             return loss.detach(), grad_of(loss, params)
 
         (loss_c, g_c), counts = _counted(f"{name} step", lambda: step("cuda"),
-                                         used_of[name])
+                                         step_used_of[name])
         loss_t, g_t = step("torch")
         err = 0.0
         for (key, a), b in zip(tree.leaves_with_paths(g_c), tree.leaves(g_t)):
@@ -2807,7 +2886,7 @@ def _probe(dev, smi):
 
     big = SIZES[-1]
     out = {"pixels": {}, "launches": {}}
-    cases = [("terrain8_mixed", WORLD_MIXED, ("bvh_cast",), True),
+    cases = [("terrain8_mixed", WORLD_MIXED, ("bvh_cast", "bvh_march"), True),
              ("terrain8", WORLD, ("bvh_cast", "bvh_occlude2"), False)]
     for name, path, used, bounces in cases:
         w = rtt.generate(path)
@@ -2831,10 +2910,14 @@ def _probe(dev, smi):
             frame_hits = cast(ro.reshape(-1, 3), rd.reshape(-1, 3))
         for y, x in pixels:
             label = f"probe {name} ({x}, {y})"
+            # a pixel whose primary ray misses shades nothing: no shadow
+            # query and no march
+            hit = bool(frame_hits.valid[y * big[0] + x])
             said = io.StringIO()
             with contextlib.redirect_stdout(said):
                 (recs, color), counts = _counted(
-                    label, lambda: debug_cast(scene, cam, cfg, x, y), used)
+                    label, lambda: debug_cast(scene, cam, cfg, x, y),
+                    used if hit else ("bvh_cast",))
             err = float(np.abs(color - img[y, x]).max())
             if not np.allclose(color, img[y, x], rtol=1e-4, atol=1e-4):
                 raise AssertionError(f"{label}: colour {color} against the "
@@ -3820,6 +3903,14 @@ def main(argv=None) -> int:
     t_b = time.perf_counter()
     report["bounces"] = _bounces(dev, smi)
     report["bounces"]["seconds"] = time.perf_counter() - t_b
+    for k, m in report["bounces"]["march"].items():
+        timing[k].update({"km_ms": m["ms"], "km_plain_ms": m["plain_ms"],
+                          "km_device_ms": m["device_ms"]})
+        bounds_at[k]["bvh_march"] = m["bound"]
+    errs["bvh_march"] = max(m["max_abs_err"]
+                            for m in report["bounces"]["march"].values())
+    launches["bvh_march"] = report["bounces"]["march"][big_key][
+        "frame_launches"]
     print(f"bounce phases: {report['bounces']['seconds']:.1f} s")
     # ---- phases 23-26: spp > 1 ----------------------------------------------
     t_s = time.perf_counter()
@@ -3887,6 +3978,9 @@ def main(argv=None) -> int:
         ("cull_cast_exact_uv", SOURCE_CULL, tpu + "pallas_engine.py:869",
          "k4x"),
         ("bvh_visit_counts", SOURCE, tpu + "pallas_engine.py:916", "k1v"),
+        # the fused march replaces no Pallas kernel: it fuses the loop of
+        # _march_shadow with K1's walk (its launches: the mixed 1080p frame)
+        ("bvh_march", SOURCE, tpu + "shading.py:78", "km"),
     ]
     # device ms = fixed + per_m * (rays in millions), fitted to the two sizes
     for name, _, _, key in rows:

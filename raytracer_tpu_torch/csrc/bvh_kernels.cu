@@ -76,6 +76,21 @@
 // passing leaf blocks, and 1.5-1.8x slower at 1080p) and K2's two walks one
 // after the other in one thread (its chain is both walks').
 //
+// The transmissive shadow march (bvh_cast_kernel(MarchArgs, Tables), an
+// overload of K1's name, so that a profile counts it among the closest-hit
+// queries) replaces no Pallas kernel: it fuses the JAX package's
+// _march_shadow loop (raytracer_tpu/render/shading.py) with K1's walk
+// (bvh_walk.cuh closest_walk), one lane a thread.  Its plain version is
+// shading.march_steps, a loop of whole-queue torch ops over K1 casts.  The
+// loop is short and per ray (walk, read a material, attenuate, move), so a
+// lane that stops costs nothing more and no host read asks whether any
+// walks on.  What bounds it: not its bytes (45 B a lane: origin,
+// direction, max_t, the active flag in, rv out; 94 MB, 28 us at 3.35 TB/s
+// for the 2,088,960-lane queue of a 1080p frame) but its walks, up to
+// shadow_steps closest hits a lane, each as long as K1's: 0.09-0.17 ms a
+// launch there on an H100, the later rounds' few active lanes spread over
+// more warps.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (render/kernels.py).  No fast math:
 // IEEE division and square root, one rounding per operation.
@@ -90,26 +105,6 @@ namespace rt {
 
 constexpr int kThreads = 128;
 
-// A node's vote apart from the prune: the slab interval is not empty, ends
-// at or after THRESHOLD, a parallel axis holds the origin, the node is
-// valid; the caller adds tmin < best t.
-struct NodeGate {
-  Slab s;
-  float tmin;
-  bool ok;
-};
-
-__device__ __forceinline__ NodeGate node_gate(const Tables& tb, int total,
-                                              int v, const Ray& ray) {
-  const float* node = tb.nodes + (total - v) * NODE_WIDTH;
-  NodeGate g;
-  g.s = slab_terms(node, ray);
-  g.tmin = slab_entry(g.s);
-  const float tmax = slab_exit(g.s);
-  g.ok = g.tmin <= tmax && tmax >= THRESHOLD && g.s.inside && node[6] > 0.0f;
-  return g;
-}
-
 template <bool kExactUv, bool kVisits>
 __global__ void __launch_bounds__(kThreads)
 bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
@@ -119,56 +114,9 @@ bvh_cast_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                 int* __restrict__ visits_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
-  const Ray ray = load_ray(ro, rd, r);
-  Best best = miss();
-  const int total = 2 * tb.n_leaves - 1;
   int visits = 1;  // kVisits: node boxes tested, the root's first
-
-  // a leaf's own gate under the current best, then its instance
-  auto leaf = [&](int u, const NodeGate& g) {
-    if (g.ok && g.tmin < best.t) {
-      const int i = tb.ordering[total - u];
-      if (i >= 0) intersect_instance<kExactUv>(i, g.s, ray, tb, best);
-    }
-  };
-
-  int v = 0;  // the entered node (its vote passed); 0 ends the walk
-  {
-    const NodeGate g = node_gate(tb, total, 1, ray);
-    if (tb.n_leaves == 1)
-      leaf(1, g);
-    else if (g.ok && g.tmin < best.t)
-      v = 1;
-  }
-  int depth = 0;      // of v
-  unsigned pend = 0;  // bit d: a right child at depth d still to enter
-  while (v > 0) {
-    // both children of v, adjacent rows, two independent slab tests
-    const int c = 2 * v;
-    const NodeGate g0 = node_gate(tb, total, c, ray);
-    const NodeGate g1 = node_gate(tb, total, c + 1, ray);
-    if (kVisits) visits += 2;
-    if (c >= tb.n_leaves) {  // two leaves, in preorder
-      leaf(c, g0);
-      leaf(c + 1, g1);
-    } else {
-      const bool go0 = g0.ok && g0.tmin < best.t;
-      const bool go1 = g1.ok && g1.tmin < best.t;
-      if (go0 || go1) {
-        // the right child's vote is kept (too kind at worst: see above)
-        if (go0 && go1) pend |= 1u << (depth + 1);
-        v = go0 ? c : c + 1;
-        ++depth;
-        continue;
-      }
-    }
-    // on to the deepest right child still to enter, or the end
-    if (pend == 0) break;
-    const int d = 31 - __clz(pend);
-    pend &= ~(1u << d);
-    v = (v >> (depth - d)) | 1;
-    depth = d;
-  }
+  const Best best =
+      closest_walk<kExactUv, kVisits>(load_ray(ro, rd, r), tb, visits);
   write_best(best, r, t_out, tri_out, uv_out, n_out, mat_out);
   if (kVisits) visits_out[r] = visits;
 }
@@ -267,6 +215,80 @@ bvh_occlude_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   blk_out[r] = occlude_walk(load_ray(ro, rd, r), mt[r], tb);
 }
 
+// The transmissive shadow march of one lane a thread.  An active lane
+// starts THRESHOLD along the ray and takes up to `steps` closest hits: a
+// miss, or a hit beyond what is left of max_t, leaves rv as it is; a
+// material with no kt channel above 0 zeroes it; else the lane moves on to
+// the hit point, and where it leaves the blocker (n.d > 0) rv takes
+// safe_pow(kt, t) per channel.  An inactive lane writes the light's
+// colour.  Each operation rounds as shading.march_steps' torch ops do
+// (-fmad=false); powf may differ from torch's pow in the last place.
+struct MarchArgs {
+  const float* __restrict__ origin;  // [R, 3]
+  const float* __restrict__ dir;     // [R, 3], or [3] when dir_step is 0
+  int dir_step;                      // 3, or 0: one direction for all lanes
+  const float* __restrict__ max_t;   // [R], or null: max_t_all for all
+  float max_t_all;
+  const bool* __restrict__ active;   // [R]
+  const float* __restrict__ light;   // [4]
+  const float* __restrict__ kt;      // [K, 4]
+  int steps;
+  int n_rays;
+  float* __restrict__ rv;  // [R, 4]
+};
+
+// raymath.safe_pow: powf's values at 0 (pow(0, 0) = 1, pow(0, e > 0) = 0)
+__device__ __forceinline__ float safe_pow(float base, float e) {
+  const float val = powf(base > 0.0f ? base : 1.0f, e);
+  return base > 0.0f ? val : (e == 0.0f ? 1.0f : 0.0f);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bvh_cast_kernel(MarchArgs a, Tables tb) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.n_rays) return;
+  float rv[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) rv[k] = a.light[k];
+  if (a.active[r]) {
+    float o[3], d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      d[k] = a.dir[a.dir_step * r + k];
+      o[k] = a.origin[3 * r + k] + THRESHOLD * d[k];
+    }
+    float remaining = a.max_t ? a.max_t[r] : a.max_t_all;
+    for (int step = 0; step < a.steps; ++step) {
+      int visits = 0;
+      const Best b = closest_walk<false, false>(make_ray(o, d), tb, visits);
+      // a miss (t = +inf) or a blocker beyond the light: rv as it is
+      if (!(b.t < __int_as_float(0x7f800000)) || b.t > remaining) break;
+      const float* kt = a.kt + 4 * b.mat;
+      const float kt4[4] = {kt[0], kt[1], kt[2], kt[3]};
+      if (!(kt4[0] > 0.0f || kt4[1] > 0.0f || kt4[2] > 0.0f ||
+            kt4[3] > 0.0f)) {  // an opaque blocker
+#pragma unroll
+        for (int k = 0; k < 4; ++k) rv[k] = 0.0f;
+        break;
+      }
+      // the normal as write_best gives it, then n.d left to right
+      const float nlen =
+          sqrtf(b.n[0] * b.n[0] + b.n[1] * b.n[1] + b.n[2] * b.n[2]);
+      const float ninv = 1.0f / nan_max(nlen, THRESHOLD);
+      const float nd = (b.n[0] * ninv) * d[0] + (b.n[1] * ninv) * d[1] +
+                       (b.n[2] * ninv) * d[2];
+      if (nd > 0.0f) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) rv[k] = rv[k] * safe_pow(kt4[k], b.t);
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) o[k] = o[k] + b.t * d[k];
+      remaining = remaining - b.t;
+    }
+  }
+  reinterpret_cast<float4*>(a.rv)[r] = make_float4(rv[0], rv[1], rv[2], rv[3]);
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 template <bool kExactUv, bool kVisits>
@@ -360,5 +382,41 @@ extern "C" int rt_bvh_occlude(const void* ro, const void* rd, const void* mt,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ro), static_cast<const float*>(rd),
       static_cast<const float*>(mt), n_rays, tb, static_cast<bool*>(blk));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transmissive march: dir_step 3 for a direction a lane ([R, 3]) or 0
+// for one ([3]); max_t null for max_t_all on every lane.
+extern "C" int rt_bvh_march(const void* origin, const void* dir, int dir_step,
+                            const void* max_t, float max_t_all,
+                            const void* active, const void* light,
+                            const void* kt, int steps, int n_rays,
+                            const void* nodes, const void* ordering,
+                            int n_leaves, const void* inst_f,
+                            const void* inst_i, const void* tmpl, void* rv,
+                            int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_leaves < 1 || (n_leaves & (n_leaves - 1)) ||
+      (dir_step != 0 && dir_step != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const rt::Tables tb{static_cast<const float*>(nodes),
+                      static_cast<const int*>(ordering), n_leaves,
+                      static_cast<const float*>(inst_f),
+                      static_cast<const int*>(inst_i),
+                      static_cast<const float*>(tmpl)};
+  const rt::MarchArgs args{static_cast<const float*>(origin),
+                           static_cast<const float*>(dir),
+                           dir_step,
+                           static_cast<const float*>(max_t),
+                           max_t_all,
+                           static_cast<const bool*>(active),
+                           static_cast<const float*>(light),
+                           static_cast<const float*>(kt),
+                           steps,
+                           n_rays,
+                           static_cast<float*>(rv)};
+  rt::bvh_cast_kernel<<<rt::blocks_for(n_rays), rt::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(args, tb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -87,17 +87,23 @@ struct Ray {
 };
 
 // _ray_recips: only EXACT zeros count as parallel axes.
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
-                                        const float* __restrict__ rd, int r) {
+__device__ __forceinline__ Ray make_ray(const float o[3], const float d[3]) {
   Ray ray;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    ray.o[k] = ro[3 * r + k];
-    ray.d[k] = rd[3 * r + k];
-    ray.par[k] = ray.d[k] == 0.0f;
-    ray.inv[k] = 1.0f / (ray.par[k] ? 1.0f : ray.d[k]);
+    ray.o[k] = o[k];
+    ray.d[k] = d[k];
+    ray.par[k] = d[k] == 0.0f;
+    ray.inv[k] = 1.0f / (ray.par[k] ? 1.0f : d[k]);
   }
   return ray;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ ro,
+                                        const float* __restrict__ rd, int r) {
+  const float o[3] = {ro[3 * r], ro[3 * r + 1], ro[3 * r + 2]};
+  const float d[3] = {rd[3 * r], rd[3 * r + 1], rd[3 * r + 2]};
+  return make_ray(o, d);
 }
 
 struct Slab {
@@ -392,6 +398,84 @@ __device__ __forceinline__ bool occlude_instance(int i, const Slab& s,
     if (th.ok && th.tt <= max_t) return true;
   }
   return false;
+}
+
+// A node's vote apart from the prune: the slab interval is not empty, ends
+// at or after THRESHOLD, a parallel axis holds the origin, the node is
+// valid; the caller adds tmin < best t.
+struct NodeGate {
+  Slab s;
+  float tmin;
+  bool ok;
+};
+
+__device__ __forceinline__ NodeGate node_gate(const Tables& tb, int total,
+                                              int v, const Ray& ray) {
+  const float* node = tb.nodes + (total - v) * NODE_WIDTH;
+  NodeGate g;
+  g.s = slab_terms(node, ray);
+  g.tmin = slab_entry(g.s);
+  const float tmax = slab_exit(g.s);
+  g.ok = g.tmin <= tmax && tmax >= THRESHOLD && g.s.inside && node[6] > 0.0f;
+  return g;
+}
+
+// K1's closest-hit walk of the implicit-heap LBVH, both children of a node
+// a step (its design: bvh_kernels.cu).  Shared by K1 and the transmissive
+// march, so that each march step's t, normal and material are K1's own.
+// kVisits: adds the node boxes the walk tests to `visits` (2 a step).
+template <bool kExactUv, bool kVisits>
+__device__ __forceinline__ Best closest_walk(const Ray& ray, const Tables& tb,
+                                             int& visits) {
+  Best best = miss();
+  const int total = 2 * tb.n_leaves - 1;
+
+  // a leaf's own gate under the current best, then its instance
+  auto leaf = [&](int u, const NodeGate& g) {
+    if (g.ok && g.tmin < best.t) {
+      const int i = tb.ordering[total - u];
+      if (i >= 0) intersect_instance<kExactUv>(i, g.s, ray, tb, best);
+    }
+  };
+
+  int v = 0;  // the entered node (its vote passed); 0 ends the walk
+  {
+    const NodeGate g = node_gate(tb, total, 1, ray);
+    if (tb.n_leaves == 1)
+      leaf(1, g);
+    else if (g.ok && g.tmin < best.t)
+      v = 1;
+  }
+  int depth = 0;      // of v
+  unsigned pend = 0;  // bit d: a right child at depth d still to enter
+  while (v > 0) {
+    // both children of v, adjacent rows, two independent slab tests
+    const int c = 2 * v;
+    const NodeGate g0 = node_gate(tb, total, c, ray);
+    const NodeGate g1 = node_gate(tb, total, c + 1, ray);
+    if (kVisits) visits += 2;
+    if (c >= tb.n_leaves) {  // two leaves, in preorder
+      leaf(c, g0);
+      leaf(c + 1, g1);
+    } else {
+      const bool go0 = g0.ok && g0.tmin < best.t;
+      const bool go1 = g1.ok && g1.tmin < best.t;
+      if (go0 || go1) {
+        // the right child's vote is kept (too kind at worst: bvh_kernels.cu)
+        if (go0 && go1) pend |= 1u << (depth + 1);
+        v = go0 ? c : c + 1;
+        ++depth;
+        continue;
+      }
+    }
+    // on to the deepest right child still to enter, or the end
+    if (pend == 0) break;
+    const int d = 31 - __clz(pend);
+    pend &= ~(1u << d);
+    v = (v >> (depth - d)) | 1;
+    depth = d;
+  }
+  return best;
 }
 
 }  // namespace rt

@@ -4,8 +4,8 @@ K4 (the candidate-list any-hit and closest hit), K1 (the LBVH closest hit)
 and K2/K3 (the LBVH shadow queries).
 
     python3 raytracer_tpu_torch/probe_kernels.py [--root DIR ...]
-                                                 [--frames-only | --walks-only]
-                                                 [--out F]
+                                                 [--frames-only | --walks-only
+                                                  | --march] [--out F]
 
 On one GPU, at 640x480 and 1920x1080, for each ``--root`` (a checkout that
 holds ``raytracer_tpu_torch``; default: this one; name several to compare
@@ -29,6 +29,10 @@ tar -x -C _checkout/parent``):
   then K2, and K3 on each query, over the whole launch, the longest 1% of
   warps and the rest, each held to its plain version;
 * the terrain8 frame (the main path: K1 and K2);
+* ``--march`` alone: terrain8_mixed's 1080p frame, then each of its
+  transmissive marches as the frame runs it (the fused kernel,
+  ``bvh_march``, where the tree has it) and as the loop of torch ops over
+  K1 casts, with the kernel's byte bound and its gap to the loop;
 * K4 on terrain6's primary rays: the whole launch, then its overflowed
   tiles (every instance walked), its listed tiles and its empty-list tiles,
   each with the list steps it walks;
@@ -74,6 +78,7 @@ import tempfile
 import torch
 
 SIZES = [(640, 480), (1920, 1080)]
+MARCH_SIZE = (1920, 1080)  # --march: the mixed cell's canvas
 REPS = 10
 WARP = 32
 # per size: K1's, K2's and K3's walk statistics, and K1-K4's plain
@@ -97,14 +102,15 @@ def _event_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, exact_calls=False):
     """Device ms per call of ``fn``, and the same by kernel name: every
     kernel and memset it launches, from a profiler trace of ``reps`` calls.
     A trace can come back without the events of some calls, so each
     kernel's mean duration is taken over the events that did arrive and
     weighted by how often a call launches it (its count over the count of
-    the call's least frequent ``rt::`` kernel); an empty trace is taken
-    again."""
+    the call's least frequent ``rt::`` kernel, or with ``exact_calls``
+    over ``reps``: for a call that launches an ``rt::`` kernel several
+    times); an empty trace is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -128,15 +134,16 @@ def device_ms(fn, reps=10):
                 c[1] += e["dur"] / 1e3
         ours = [c[0] for k, c in seen.items() if "rt::" in k]
         if seen:
-            calls = min(ours) if ours else reps  # plain torch: no kernel of ours
+            # plain torch: no kernel of ours
+            calls = reps if exact_calls or not ours else min(ours)
             by_name = {k[:80]: c[1] / c[0] * max(1, round(c[0] / calls))
                        for k, c in seen.items()}
             return sum(by_name.values()), by_name
     raise RuntimeError("the profiler trace shows no kernel")
 
 
-def _times(fn):
-    dev, by_name = device_ms(fn)
+def _times(fn, exact_calls=False):
+    dev, by_name = device_ms(fn, exact_calls=exact_calls)
     return {"event_ms": _event_ms(fn), "device_ms": dev, "kernels": by_name}
 
 
@@ -414,7 +421,84 @@ def _load(root):
         sys.path.remove(root)
 
 
-def probe(root, dev, smi, frames_only=False, logs=None, walks_only=False):
+def float32_steps(a, b):
+    """Largest distance of two float32 tensors in float32 steps (the zeros
+    of both signs one value)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _march(rtt, mod, root, dev, out):
+    """terrain8_mixed at 1080p (``MARCH_SIZE``): the frame (median of 10),
+    then each of its transmissive marches (2 lights x 3 rounds, inputs
+    recorded from one frame) as the frame runs it (``march_transmissive``:
+    the fused kernel where the tree has one) and as the loop of torch ops
+    over K1 casts (``shading.march_steps``; on a tree without it, its
+    ``march_transmissive``), with the kernel's byte bound and its largest
+    gap to the loop in float32 steps."""
+    shading = mod("raytracer_tpu_torch.render.shading")
+    engine = mod("raytracer_tpu_torch.render.engine")
+    scale_camera = mod("raytracer_tpu_torch.builder").scale_camera
+    w = rtt.generate(os.path.join(root, "raytracer_tpu_torch", "worlds",
+                                  "terrain8_mixed.json"))
+    scene = rtt.to_device(w.scene, dev)
+    (width, height), size = MARCH_SIZE, "x".join(map(str, MARCH_SIZE))
+    cfg = w.config.replace(engine="cuda", width=width, height=height)
+    cam = rtt.to_device(scale_camera(w.camera, width, w.config.width), dev)
+    ms = _event_ms(lambda: engine.render_frame(scene, cam, cfg))
+    out[f"frame_mixed_{size}"] = ms
+    print(f"frame terrain8_mixed {size}: {ms:.3f} ms (median of {REPS})")
+    calls, orig = [], shading.march_transmissive
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+
+    shading.march_transmissive = record
+    try:
+        engine.render_frame(scene, cam, cfg)
+    finally:
+        shading.march_transmissive = orig
+    loop_fn = getattr(shading, "march_steps", None)
+    for i, (sc, geom, cast, c, o, d, mt, col, act) in enumerate(calls):
+        key = f"march_{i}_{'point' if d.dim() == 2 else 'directional'}"
+        rec = {"lanes": o.shape[0], "active": int(act.sum())}
+        if loop_fn is None:
+            def loop():
+                return orig(sc, geom, cast, c, o, d, mt, col, act)
+        else:
+            def loop():
+                return loop_fn(cast, geom, sc.materials, o, d, mt, col, act,
+                               c.shadow_steps, c.early_exit)
+        rec["loop"] = _times(loop, exact_calls=True)  # a K1 launch a step
+        if getattr(cast, "march", None) is not None:
+            def fused():
+                return cast.march(o, d, mt, col, act, sc.materials.kt,
+                                  c.shadow_steps)
+            rec["kernel"] = _times(fused)
+            nbytes = o.shape[0] * (12 + 1 + 16 + (12 if d.dim() == 2 else 0)
+                                   + (4 if isinstance(mt, torch.Tensor)
+                                      else 0))
+            rec["bytes"] = nbytes
+            rec["bound_ms"] = nbytes / 3.35e12 * 1e3
+            rec["ulps_to_loop"] = float32_steps(fused(), loop())
+            rec["values_off_loop"] = int((fused() != loop()).sum())
+        out[key] = rec
+        print(f"{key}: {rec['active']} of {rec['lanes']} lanes active; loop "
+              f"{rec['loop']['event_ms']:.4f} ms (device "
+              f"{rec['loop']['device_ms']:.4f})" + (
+                  f"; kernel {rec['kernel']['event_ms']:.4f} ms (device "
+                  f"{rec['kernel']['device_ms']:.4f}), bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bytes']} B), "
+                  f"{rec['values_off_loop']} values off the loop's, "
+                  f"{rec['ulps_to_loop']} float32 steps at most"
+                  if "kernel" in rec else ""))
+
+
+def probe(root, dev, smi, frames_only=False, logs=None, walks_only=False,
+          march=False):
     rtt = _load(root)
     mod = importlib.import_module
     ce = mod("raytracer_tpu_torch.render.cuda_engine")
@@ -446,6 +530,9 @@ def probe(root, dev, smi, frames_only=False, logs=None, walks_only=False):
     out["ptxas"] = logs.get(root)
     for name, rec in (logs.get(root) or {}).items():
         print(f"ptxas {name}: {rec}")
+    if march:
+        _march(rtt, mod, root, dev, out)
+        return out
     for w, h in SIZES:
         if not frames_only:
             _k1(rtt, mod, root, dev, f"{w}x{h}", w, h, out)
@@ -609,6 +696,9 @@ def main(argv=None) -> int:
                     help="time the frames alone (many turns of two trees)")
     ap.add_argument("--walks-only", action="store_true",
                     help="terrain8's LBVH walks (K1-K3) alone")
+    ap.add_argument("--march", action="store_true",
+                    help="terrain8_mixed's 1080p frame and its transmissive "
+                         "marches alone (kernel and loop)")
     ap.add_argument("--out", default=None, help="write the numbers as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -623,7 +713,7 @@ def main(argv=None) -> int:
     _WALKS["ce"] = importlib.import_module(
         "raytracer_tpu_torch.render.cuda_engine")
     results = [probe(os.path.abspath(r), dev, smi, args.frames_only, logs,
-                     args.walks_only)
+                     args.walks_only, args.march)
                for r in (args.root or [here])]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

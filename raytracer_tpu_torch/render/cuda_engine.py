@@ -18,6 +18,10 @@ instances) lives in ``cull.py`` and shares this module's tables and helpers:
   in one launch (the kernel: one walk a query; :func:`occlude_walk_replay`).
 * K3 ``_bvh_occlude_kernel`` -> :func:`bvh_occlude` /
   :func:`bvh_occlude_reference`: one any-hit query (the per-light shadow).
+* no Pallas kernel -> :func:`bvh_march` / ``shading.march_steps``: the
+  transmissive shadow march of a light, every step's K1 walk and the
+  attenuation in one thread a lane (the JAX package's ``_march_shadow``
+  loop fused with K1).
 
 The tables keep the JAX package's layouts (``_IF_*``, ``_II_*``, ``_TF_*``)
 column for column.  The CUDA kernels walk the tree per thread (one ray each)
@@ -1120,6 +1124,53 @@ def bvh_occlude2(o1, d1, mt1, o2, d2, mt2, data: CastData):
 bvh_occlude2.launches = 0
 
 
+def bvh_march(origin, dir_unit, max_t, light_col, active, kt, steps: int,
+              data: CastData) -> torch.Tensor:
+    """The transmissive shadow march in one launch: K1's walk and
+    ``shading.march_steps``' rules in one thread a lane (the kernel
+    ``bvh_cast_kernel(MarchArgs, Tables)``).  ``origin`` ``[R, 3]`` f32,
+    ``dir_unit`` ``[R, 3]`` or ``[3]`` (one direction for every lane),
+    ``max_t`` ``[R]`` f32 or a float (``+inf`` for a directional light),
+    ``active`` bool ``[R]``, ``light_col`` ``[4]``, the materials' ``kt``
+    ``[K, 4]``.  Returns the light arriving, ``[R, 4]`` f32.  CUDA tensors
+    only: the plain version is ``shading.march_steps`` over a cast."""
+    R = origin.shape[0]
+    dev = origin.device
+    if _device_kind(origin) != "cuda":
+        raise ValueError("bvh_march launches on CUDA tensors only (the "
+                         "plain march is shading.march_steps)")
+    _check("origin", origin, torch.float32, (R, 3), dev)
+    per_lane = dir_unit.dim() == 2
+    _check("dir_unit", dir_unit, torch.float32, (R, 3) if per_lane else (3,),
+           dev)
+    if isinstance(max_t, torch.Tensor):
+        _check("max_t", max_t, torch.float32, (R,), dev)
+        mt_ptr, mt_all = _ptr(max_t), 0.0
+    else:
+        mt_ptr, mt_all = None, float(max_t)
+    _check("active", active, torch.bool, (R,), dev)
+    _check("light_col", light_col, torch.float32, (4,), dev)
+    _check("kt", kt, torch.float32, (kt.shape[0], 4), dev)
+    _check_data(data, dev)
+    from . import kernels
+
+    rv = torch.empty(R, 4, dtype=torch.float32, device=dev)
+    if R > 0:
+        tab = data.tables
+        err = kernels.library().rt_bvh_march(
+            _ptr(origin), _ptr(dir_unit), 3 if per_lane else 0, mt_ptr,
+            mt_all, _ptr(active), _ptr(light_col), _ptr(kt), int(steps), R,
+            _ptr(data.nodes), _ptr(data.ordering), data.n_leaves,
+            _ptr(tab.inst_f32), _ptr(tab.inst_i32), _ptr(tab.tmpl), _ptr(rv),
+            dev.index, kernels.stream_handle(dev))
+        _raise_on(err, "bvh_march")
+        bvh_march.launches += 1
+    return rv
+
+
+bvh_march.launches = 0
+
+
 def bvh_visit_counts_reference(ro, rd, data: CastData) -> torch.Tensor:
     """The plain version of K1's visit counts: int32 ``[R]``, the node
     boxes K1's walk tests (:func:`k1_walk_replay`)."""
@@ -1133,9 +1184,13 @@ def make_cuda_cast(data: CastData, cfg: RenderConfig,
     rd)`` attributes, under the autodiff rules of ``cast_vjp``: the reparam
     rule over the packed rows ``geo`` where given (``edge_aware_grads``,
     with K1's exact_uv branch), else the detached one.  ``engine="cuda"``
-    goes through the dispatching wrappers; ``engine="torch"`` calls the
-    plain versions on any device.  The candidate-list cull has its own
-    (``cull.make_cull_cast``; ``engine.make_cast`` picks)."""
+    goes through the dispatching wrappers and adds ``march(origin,
+    dir_unit, max_t, light_col, active, kt, steps)``, the transmissive
+    shadow march in one launch of :func:`bvh_march` (forward only, CUDA
+    tensors only; ``shading.march_transmissive`` takes it where no input
+    requires grad); ``engine="torch"`` calls the plain versions on any
+    device.  The candidate-list cull has its own (``cull.make_cull_cast``;
+    ``engine.make_cast`` picks)."""
     if data.nodes is None:
         raise ValueError("make_cuda_cast walks the LBVH: CastData without "
                          "nodes is the cull's (cull.make_cull_cast)")
@@ -1166,7 +1221,16 @@ def make_cuda_cast(data: CastData, cfg: RenderConfig,
     def visit_counts(ro, rd):
         return visits_k(ro.contiguous(), rd.contiguous(), data)
 
+    def march(origin, dir_unit, max_t, light_col, active, kt, steps):
+        if isinstance(max_t, torch.Tensor):
+            max_t = max_t.contiguous()
+        return bvh_march(origin.contiguous(), dir_unit.contiguous(), max_t,
+                         light_col.contiguous(), active.contiguous(),
+                         kt.contiguous(), steps, data)
+
     cast.occlude = occlude
     cast.occlude2 = occlude2
     cast.visit_counts = visit_counts
+    if cfg.engine == "cuda":
+        cast.march = march
     return cast

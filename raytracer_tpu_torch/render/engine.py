@@ -529,12 +529,15 @@ def _in_span(name: str, fn):
 
 def _cast_spans(cast) -> CastFn:
     """``cast`` with its closest hit and each query attribute it has
-    (``occlude``, ``occlude2``, ``visit_counts``) in an ``rt.cast`` span."""
+    (``occlude``, ``occlude2``, ``visit_counts``) in an ``rt.cast`` span;
+    its ``march`` (the LBVH walk's) as it is, in the caller's ``rt.march``."""
     traced = _in_span("rt.cast", cast)
     for name in ("occlude", "occlude2", "visit_counts"):
         fn = getattr(cast, name, None)
         if fn is not None:
             setattr(traced, name, _in_span("rt.cast", fn))
+    if getattr(cast, "march", None) is not None:
+        traced.march = cast.march
     return traced
 
 

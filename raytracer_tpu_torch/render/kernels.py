@@ -98,13 +98,15 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     argtypes = {
-        # K1-K3 (bvh_kernels.cu)
+        # K1-K3 and the transmissive march (bvh_kernels.cu)
         "rt_bvh_cast": [vp, vp, ci, vp, vp, ci, vp, vp, vp,
                         vp, vp, vp, vp, vp, ci, vp, ci, vp],
         "rt_bvh_occlude2": [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci,
                             vp, vp, vp, vp, vp, ci, vp],
         "rt_bvh_occlude": [vp, vp, vp, ci, vp, vp, ci, vp, vp, vp,
                            vp, ci, vp],
+        "rt_bvh_march": [vp, vp, ci, vp, ctypes.c_float, vp, vp, vp, ci,
+                         ci, vp, vp, ci, vp, vp, vp, vp, ci, vp],
         # K4, K5 (cull_kernels.cu)
         "rt_cull_cast": [vp, vp, ci, vp, vp, ci, ci, vp, vp, ci, vp,
                          vp, ci, vp, vp, vp, vp, vp, ci, vp],

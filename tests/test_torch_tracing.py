@@ -11,14 +11,17 @@
   profiler; under one, the port's ``rt.*`` spans nest as its layers do
   (a frame's prep, casts and shading; a bounce world's queue and early
   exits a round; a step's frame and backward; a glass world's shadow
-  march, its casts and early exits), and the frame's pixels and the
-  step's gradients are bit for bit those of an untraced run.
+  march, its casts and early exits, also under grad), and the frame's
+  pixels and the step's gradients are bit for bit those of an untraced
+  run.
 * the march's readers (``rtbench/metrics/march_*.frame.py``) on a
-  synthetic stretch.
+  synthetic stretch: ``march_fused.frame`` 100 where every march holds an
+  ``rt.march_fused`` span, 0 where none does, None where none opens.
 * ``cli -b`` reports the median of its repeats, with their minimum and
   95th percentile beside it.
 """
 
+import dataclasses
 import json
 import os
 import types
@@ -30,9 +33,13 @@ from raytracer_tpu import tracing as jtracing
 
 import raytracer_tpu_torch as rtt
 from raytracer_tpu_torch import cli, diff, tracing, tree
+from raytracer_tpu_torch import raymath as rm
 from raytracer_tpu_torch.builder import scale_camera
-from raytracer_tpu_torch.render.engine import (render_frame,
+from raytracer_tpu_torch.render.engine import (_frame_rays_blocked,
+                                               make_cast, render_frame,
                                                render_frame_with_stats)
+from raytracer_tpu_torch.render.geometry import expand_geometry
+from raytracer_tpu_torch.render.shading import march_transmissive
 from rtbench import spec
 from rtbench import trace as rtrace
 
@@ -87,11 +94,12 @@ def test_frame_stats_total_and_mean_match_jax(monkeypatch, capsys,
     assert stats["port"][1] == pytest.approx(1e3 * sum(seconds))
 
 
-def _world(path):
+def _world(path, width=32, height=24):
     w = rtt.generate(path)
     scene = rtt.to_device(w.scene, "cpu")
-    cam = rtt.to_device(scale_camera(w.camera, 32, w.config.width), "cpu")
-    return scene, cam, w.config.replace(width=32, height=24, engine="cuda")
+    cam = rtt.to_device(scale_camera(w.camera, width, w.config.width), "cpu")
+    return scene, cam, w.config.replace(width=width, height=height,
+                                        engine="cuda")
 
 
 @pytest.fixture(scope="module")
@@ -107,6 +115,11 @@ def stress():
 @pytest.fixture(scope="module")
 def mixed():
     return _world(MIXED)
+
+
+@pytest.fixture(scope="module")
+def mixed16():
+    return _world(MIXED, 16, 12)
 
 
 def _trace_names(logdir):
@@ -250,8 +263,10 @@ def test_no_march_opens_in_an_opaque_or_mirror_world(name, request):
 
 def test_a_glass_frame_marches_in_one_span_a_light_and_round(mixed):
     """Each round's shading marches once a light, inside its ``rt.shade``;
-    each march holds its closest-hit casts, at most ``shadow_steps``, and
-    before each an early exit, one more where no shadow ray walked on."""
+    on CPU rays each march is the loop of torch ops (the fused kernel's
+    path, marked by an ``rt.march_fused`` span, is the card's): it holds
+    its closest-hit casts, at most ``shadow_steps``, and before each an
+    early exit, one more where no shadow ray walked on."""
     scene, cam, cfg = mixed
     assert cfg.any_refractive and cfg.any_reflective and cfg.early_exit
     (img, stats), spans = _traced(lambda: render_frame_with_stats(
@@ -262,6 +277,7 @@ def test_a_glass_frame_marches_in_one_span_a_light_and_round(mixed):
     assert len(shades) == cfg.recurse_depth + 1 and lights == 2
     assert len(marches) == lights * len(shades)
     assert all(sum(_inside(m, s) for s in shades) == 1 for m in marches)
+    assert not _named(spans, "rt.march_fused")
     casts, syncs = _named(spans, "rt.cast"), _named(spans, "rt.sync")
     steps = []
     for m in marches:
@@ -275,6 +291,41 @@ def test_a_glass_frame_marches_in_one_span_a_light_and_round(mixed):
     assert max(steps) >= 2  # some shadow ray went through glass
     untraced, _ = render_frame_with_stats(scene, cam, cfg)
     assert torch.equal(img, untraced) and int(stats["dropped"]) == 0
+
+
+def test_a_glass_march_under_grad_steps_in_torch_ops(mixed16):
+    """With ``kt`` requiring grad each light's march is the loop of torch
+    ops (on the card too): it holds its closest-hit casts, at most
+    ``shadow_steps``, and before each an early exit, one more where no
+    shadow ray walked on; no ``rt.march_fused`` opens, and the light is
+    the one of the march without grad."""
+    scene, cam, cfg = mixed16
+    geom = expand_geometry(scene)
+    cast = make_cast(scene, geom, cfg)
+    ro, rd, _, _ = _frame_rays_blocked(cam, cfg)
+    hit = cast(ro, rd)
+    pos = ro + torch.where(hit.valid, hit.t, 1.0)[:, None] * rd
+    disp = scene.lights.point_pos[0] - pos
+    kt = scene.materials.kt.clone().requires_grad_(True)
+    graded = dataclasses.replace(scene, materials=dataclasses.replace(
+        scene.materials, kt=kt))
+    lights = [(rm.normalize(disp), rm.norm(disp), scene.lights.point_col[0]),
+              (rm.normalize(-scene.lights.dir_dir[0]), float("inf"),
+               scene.lights.dir_col[0])]
+    steps = []
+    for dir_unit, max_t, col in lights:
+        args = (geom, cast, cfg, pos, dir_unit, max_t, col, hit.valid)
+        rv, spans = _traced(lambda: march_transmissive(graded, *args))
+        (march,) = _named(spans, "rt.march")
+        assert not _named(spans, "rt.march_fused")
+        casts, syncs = _named(spans, "rt.cast"), _named(spans, "rt.sync")
+        assert all(_inside(c, march) for c in casts + syncs)
+        assert 1 <= len(casts) <= cfg.shadow_steps
+        assert len(syncs) - len(casts) in (0, 1)
+        steps.append(len(casts))
+        assert rv.requires_grad
+        assert torch.equal(rv.detach(), march_transmissive(scene, *args))
+    assert max(steps) >= 2  # some shadow ray went through glass
 
 
 def _march_stretch():
@@ -313,10 +364,27 @@ def test_the_march_readers_on_a_synthetic_stretch():
     # shading's self time no longer holds the march's glue
     assert read("shade_ms.frame") == pytest.approx((300 - 190 - 30) * 1e-3
                                                    / 2)
+    # neither march took the fused kernel
+    assert read("march_fused.frame") == 0.0
     st.host = [h for h in st.host if h[2] != "rt.march"]
     for name in ("march_steps.frame", "march_ms.frame",
-                 "march_launches.frame"):
+                 "march_launches.frame", "march_fused.frame"):
         assert read(name) is None
+
+
+@pytest.mark.parametrize("fused, share", [
+    ([(120, 280, 1), (510, 590, 1)], 100.0),  # both marches fused
+    ([(120, 280, 1)], 50.0),
+    ([(120, 280, 7), (610, 700, 1)], 0.0),  # another thread; no march's
+])
+def test_the_fused_march_reader_on_a_synthetic_stretch(fused, share):
+    st = _march_stretch()
+    st.host += [(float(a), float(b), "rt.march_fused", t)
+                for a, b, t in fused]
+    read = spec.metric_reader("march_fused.frame").read
+    assert read(st) == pytest.approx(share)
+    st.host = [h for h in st.host if h[2] != "rt.march"]
+    assert read(st) is None
 
 
 def test_a_step_is_one_span_holding_its_frame_and_backward(small):

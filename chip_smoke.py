@@ -1341,7 +1341,7 @@ def _march_checks(label, scene, geom, data, cfg, waves):
     from raytracer_tpu_torch.render import cuda_engine as ce
     from raytracer_tpu_torch.render.shading import march_steps
 
-    cast = ce.make_cuda_cast(data, cfg)
+    cast = ce.make_cuda_cast(data, cfg, plain=False)
     kt, steps = scene.materials.kt, cfg.shadow_steps
     rec = {"ulps": 0, "max_abs_err": 0.0, "marches": []}
     with torch.no_grad():
@@ -2254,15 +2254,22 @@ class _KeptCast:
     """A plain cast (``make_cast(..., engine="torch")``) that keeps each
     answer beside its inputs and gives it again for equal inputs: the
     reference frame's walks then serve the kernels' comparison on the same
-    rays (``_same_as_plain``), so each plain walk runs once.  Inputs that
-    differ are walked anew; ``reused`` counts the answers given again."""
+    rays (``_same_as_plain``), so each plain walk runs once.  ``cast`` is
+    the plain ``Cast`` with its queries answering through the kept ones;
+    inputs that differ are walked anew; ``reused`` counts the answers given
+    again."""
 
     def __init__(self, cast):
-        self.cast, self.kept, self.reused = cast, [], 0
-        for name in ("occlude", "occlude2"):
-            fn = getattr(cast, name, None)
-            setattr(self, name, None if fn is None else (
-                lambda *a, _n=name, _f=fn: self._answer(_n, _f, a)))
+        self.kept, self.reused = [], 0
+
+        def kept(name, fn):
+            return None if fn is None else (
+                lambda *a: self._answer(name, fn, a))
+
+        self.cast = dataclasses.replace(
+            cast, closest=kept("cast", cast.closest),
+            occlude=kept("occlude", cast.occlude),
+            occlude2=kept("occlude2", cast.occlude2))
 
     def _answer(self, name, fn, args):
         for kname, kargs, res in self.kept:
@@ -2273,9 +2280,6 @@ class _KeptCast:
         res = fn(*args)
         self.kept.append((name, args, res))
         return res
-
-    def __call__(self, o, d):
-        return self._answer("cast", self.cast, (o, d))
 
 
 def _plain_frame(scene, cam, cfg):
@@ -2290,7 +2294,8 @@ def _plain_frame(scene, cam, cfg):
     geom = expand_geometry(scene)
     kept = _KeptCast(eng.make_cast(scene, geom, cfg))
     with torch.no_grad():
-        img, _ = eng._render_one_stats(scene, geom, kept, cam, cfg, None)
+        img, _ = eng._render_one_stats(scene, geom, kept.cast, cam, cfg,
+                                       None)
     return img, kept
 
 
@@ -2299,9 +2304,9 @@ def _same_as_plain(label, scene, cfg, o, d, fused, plain=None):
     their plain versions on the rays ``(o, d)`` (launches here are
     comparisons, not the main path's): every hit output identical; then the
     two lights' shadow queries of those hits, through ``occlude2`` (K2)
-    where ``fused``, else ``occlude`` per light, identical masks; a cast
-    without any-hit queries (the MXU cast) casts the shadow rays for their
-    closest hits, every output identical.  ``plain``: the plain cast to
+    where ``fused``, else ``occlude`` per light, identical masks; the MXU
+    cast, whose ``occlude`` is its closest hit's, casts the shadow rays for
+    their closest hits, every output identical.  ``plain``: the plain cast to
     take (a :class:`_KeptCast` of the reference frame), else a new one."""
     from raytracer_tpu_torch.render.engine import make_cast
     from raytracer_tpu_torch.render.geometry import expand_geometry
@@ -2309,7 +2314,7 @@ def _same_as_plain(label, scene, cfg, o, d, fused, plain=None):
 
     geom = expand_geometry(scene)
     ck = make_cast(scene, geom, cfg.replace(engine="cuda"))
-    cp = plain if plain is not None else make_cast(
+    cp = plain.cast if plain is not None else make_cast(
         scene, geom, cfg.replace(engine="torch"))
     with torch.no_grad():
         hk = ck(o, d)
@@ -2319,7 +2324,7 @@ def _same_as_plain(label, scene, cfg, o, d, fused, plain=None):
                                             hk.valid)
         q = (o1, d1, dist1, o2, d2.contiguous(),
              torch.full_like(dist1, float("inf")))
-        if getattr(ck, "occlude", None) is None:
+        if cfg.pallas_kernel == "mxu":
             for k, (so, sd) in enumerate(((o1, d1), (o2, q[4]))):
                 _compare_hits(f"{label}: shadow rays {k}", ck(so, sd),
                               cp(so, sd))

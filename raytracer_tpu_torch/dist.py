@@ -64,7 +64,7 @@ from . import tree
 from .builder import scale_camera
 from .cube_world import generate
 from .diff import grad_of, merge_params, sgd_step, trainable_params
-from .render.cast import Hit
+from .render.cast import Cast, Hit, occlude_by_closest
 from .render.engine import (make_cast, prepared, render_rays,
                             render_rays_stats, spp_jitter_grid, sum_samples)
 from .render.geometry import camera_rays, expand_geometry
@@ -444,7 +444,7 @@ def _pick(x: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
 
 
 def make_geom_sharded_cast(scene: Scene, cfg: RenderConfig, shard: dict,
-                           mesh: Mesh):
+                           mesh: Mesh) -> Cast:
     """The merged cast of a geometry shard, called by every rank of the
     ``geom`` group on the same rays: the engine's cast against this rank's
     shard, then one all_gather of the float fields ``(t with inf for a
@@ -472,7 +472,7 @@ def make_geom_sharded_cast(scene: Scene, cfg: RenderConfig, shard: dict,
     inner = make_cast(local, expand_geometry(local), cfg)
     base = shard["wtri_base"]
 
-    def cast(o, d):
+    def closest(o, d):
         h = inner(o, d)
         t = torch.where(h.valid, h.t, torch.inf)
         floats = _all_gather(torch.cat([t[:, None], h.uv, h.normal], 1), mesh,
@@ -485,14 +485,11 @@ def make_geom_sharded_cast(scene: Scene, cfg: RenderConfig, shard: dict,
         return Hit(valid=torch.isfinite(best_t), t=best_t, wtri=i[:, 0],
                    uv=f[:, 1:3], normal=f[:, 3:6], mat=i[:, 1])
 
-    occ = getattr(inner, "occlude", None)
-    if occ is not None:
-        def occlude(o, d, max_t):
-            blk = occ(o, d, max_t).to(torch.int32)
-            return _all_reduce_sum(blk, mesh, GEOM_AXIS) > 0
+    def occlude(o, d, max_t):
+        blk = inner.occlude(o, d, max_t).to(torch.int32)
+        return _all_reduce_sum(blk, mesh, GEOM_AXIS) > 0
 
-        cast.occlude = occlude
-    return cast
+    return Cast(closest, occlude)
 
 
 def geom_sharded_render_rays(scene: Scene, cfg: RenderConfig, shard: dict,
@@ -607,7 +604,7 @@ def _pass_shard(shard: dict, mesh: Mesh) -> dict:
 
 
 def make_ring_geom_cast(scene: Scene, cfg: RenderConfig, shard: dict,
-                        mesh: Mesh):
+                        mesh: Mesh) -> Cast:
     """Ring-streaming geometry partitioning: the rays stay, the geometry
     shards travel.  ``cast(o, d) -> Hit``, called by every rank of the
     ``geom`` group: G steps, each casting against the visiting shard and
@@ -615,7 +612,8 @@ def make_ring_geom_cast(scene: Scene, cfg: RenderConfig, shard: dict,
     shard), then passing the shard to the next rank of the ring
     (``batch_isend_irecv``; one instance table a step instead of per-ray
     hits).  Forward only, as the JAX function is used.  A miss keeps wtri 0
-    and zero attributes, as the JAX fold does.  The scalar casts only, as
+    and zero attributes, as the JAX fold does.  Its ``occlude`` is the
+    closest hit's (``occlude_by_closest``).  The scalar casts only, as
     :func:`make_geom_sharded_cast`."""
     _need_scalar(cfg)
     n = mesh.size(GEOM_AXIS)
@@ -644,7 +642,7 @@ def make_ring_geom_cast(scene: Scene, cfg: RenderConfig, shard: dict,
         return Hit(valid=torch.isfinite(t), t=t, wtri=wtri, uv=uv,
                    normal=normal, mat=mat)
 
-    return cast
+    return Cast(cast, occlude_by_closest(cast))
 
 
 # ---------------------------------------------------------------------------

@@ -473,6 +473,8 @@ def _march(rtt, mod, root, dev, out):
                 return loop_fn(cast, geom, sc.materials, o, d, mt, col, act,
                                c.shadow_steps, c.early_exit)
         rec["loop"] = _times(loop, exact_calls=True)  # a K1 launch a step
+        # getattr: a parent tree (--root) may cast through a closure with
+        # no march attribute, where this tree's Cast has a march field
         if getattr(cast, "march", None) is not None:
             def fused():
                 return cast.march(o, d, mt, col, act, sc.materials.kt,

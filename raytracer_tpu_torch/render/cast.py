@@ -1,11 +1,13 @@
-"""Hit records and the shading attributes of a hit.
+"""Hit records, the :class:`Cast` of every query and a hit's shading
+attributes.
 
 Counterpart of ``raytracer_tpu/render/cast.py`` (``Hit``,
 ``hit_shading_attrs``).  The casts themselves live in ``cuda_engine.py``
-(the LBVH walk), ``cull.py`` and ``mxu.py``.  The walk takes a whole frame
-in one launch; the cull and the MXU cast chunk the rays as
-``_chunked_over_rays`` does (``cull.CullLayout``), since their tiles, and so
-their results' order of visits, depend on which rays share a tile.
+(the LBVH walk), ``cull.py`` and ``mxu.py``; ``engine.make_cast`` picks.
+The walk takes a whole frame in one launch; the cull and the MXU cast chunk
+the rays as ``_chunked_over_rays`` does (``cull.CullLayout``), since their
+tiles, and so their results' order of visits, depend on which rays share a
+tile.
 """
 
 from __future__ import annotations
@@ -33,8 +35,38 @@ class Hit:
     mat: Optional[torch.Tensor] = None  # [...] i32 material id
 
 
-# Signature all casts share: (origins [R,3], dirs [R,3]) -> Hit over [R]
-CastFn = Callable[[torch.Tensor, torch.Tensor], Hit]
+@dataclass(frozen=True)
+class Cast:
+    """The queries of one cast over rays ``[R, 3]``, built by
+    ``engine.make_cast``; ``cast(ro, rd)`` is ``cast.closest(ro, rd)``.  An
+    optional query is None where no kernel answers it."""
+
+    closest: Callable[..., Hit]  # (ro, rd) -> Hit
+    # (ro, rd, max_t) -> bool [R]: a blocker within max_t (an any-hit
+    # kernel, or occlude_by_closest)
+    occlude: Callable[..., torch.Tensor]
+    # (o1, d1, mt1, o2, d2, mt2) -> both masks of the fused two-light round
+    # (K2, or two K5 queries)
+    occlude2: Optional[Callable[..., tuple]] = None
+    # (origin, dir_unit, max_t, light_col, active, kt, steps) -> [R, 4]: the
+    # transmissive shadow march in one launch (the LBVH walk on the card)
+    march: Optional[Callable[..., torch.Tensor]] = None
+    # (ro, rd) -> int32 [R]: the node boxes each ray's walk tests (the walk)
+    visit_counts: Optional[Callable[..., torch.Tensor]] = None
+
+    def __call__(self, ro: torch.Tensor, rd: torch.Tensor) -> Hit:
+        return self.closest(ro, rd)
+
+
+def occlude_by_closest(closest):
+    """The any-hit query of a cast without one: its closest hit within
+    ``max_t`` (the closest hit being minimal)."""
+
+    def occlude(ro, rd, max_t):
+        hit = closest(ro, rd)
+        return hit.valid & (torch.where(hit.valid, hit.t, 1.0) <= max_t)
+
+    return occlude
 
 
 def hit_shading_attrs(geom: WorldGeometry, hit: Hit):

@@ -50,7 +50,7 @@ import torch
 from .. import raymath as rm
 from ..accel import build_lbvh
 from ..scene import RenderConfig, Scene
-from .cast import Hit
+from .cast import Cast, Hit
 from .cast_vjp import closest_hit, occlude2_detached, occlude_detached
 from .geometry import WorldGeometry, mesh_boxes, mesh_of_triangles
 
@@ -1178,37 +1178,28 @@ def bvh_visit_counts_reference(ro, rd, data: CastData) -> torch.Tensor:
 
 
 def make_cuda_cast(data: CastData, cfg: RenderConfig,
-                   geo: Optional[torch.Tensor] = None):
-    """The engine's cast: ``cast(ro, rd) -> Hit`` with ``occlude(ro, rd,
-    max_t)``, ``occlude2(o1, d1, mt1, o2, d2, mt2)`` and ``visit_counts(ro,
-    rd)`` attributes, under the autodiff rules of ``cast_vjp``: the reparam
-    rule over the packed rows ``geo`` where given (``edge_aware_grads``,
-    with K1's exact_uv branch), else the detached one.  ``engine="cuda"``
-    goes through the dispatching wrappers and adds ``march(origin,
-    dir_unit, max_t, light_col, active, kt, steps)``, the transmissive
-    shadow march in one launch of :func:`bvh_march` (forward only, CUDA
-    tensors only; ``shading.march_transmissive`` takes it where no input
-    requires grad); ``engine="torch"`` calls the plain versions on any
-    device.  The candidate-list cull has its own (``cull.make_cull_cast``;
-    ``engine.make_cast`` picks)."""
+                   geo: Optional[torch.Tensor] = None, *, plain: bool) -> Cast:
+    """The LBVH walk's :class:`Cast` under the autodiff rules of
+    ``cast_vjp``: the reparam rule over the packed rows ``geo`` where given
+    (``edge_aware_grads``, with K1's exact_uv branch), else the detached
+    one.  ``plain`` calls the plain versions on any device; else the
+    dispatching wrappers, and on CUDA tables the cast also has ``march``,
+    the transmissive shadow march in one launch of :func:`bvh_march`
+    (forward only).  The candidate-list cull has its own
+    (``cull.make_cull_cast``; ``engine.make_cast`` picks)."""
     if data.nodes is None:
         raise ValueError("make_cuda_cast walks the LBVH: CastData without "
                          "nodes is the cull's (cull.make_cull_cast)")
-    if cfg.engine == "cuda":
-        queries = bvh_cast, bvh_occlude, bvh_occlude2, bvh_visit_counts
-    elif cfg.engine == "torch":
-        queries = (bvh_cast_reference, bvh_occlude_reference,
-                   bvh_occlude2_reference, bvh_visit_counts_reference)
-    else:
-        raise ValueError(f"unknown engine {cfg.engine!r} "
-                         "(expected 'torch' or 'cuda')")
-    cast_k, occ_q, occ2_q, visits_k = queries
+    cast_k, occ_q, occ2_q, visits_k = (
+        (bvh_cast_reference, bvh_occlude_reference, bvh_occlude2_reference,
+         bvh_visit_counts_reference) if plain
+        else (bvh_cast, bvh_occlude, bvh_occlude2, bvh_visit_counts))
     exact_uv = cfg.edge_aware_grads
 
     def cast_q(ro, rd, d):
         return cast_k(ro, rd, d, exact_uv=exact_uv)
 
-    def cast(ro, rd):
+    def closest(ro, rd):
         return closest_hit(cast_q, ro, rd, data, geo)
 
     def occlude(ro, rd, max_t):
@@ -1228,9 +1219,5 @@ def make_cuda_cast(data: CastData, cfg: RenderConfig,
                          light_col.contiguous(), active.contiguous(),
                          kt.contiguous(), steps, data)
 
-    cast.occlude = occlude
-    cast.occlude2 = occlude2
-    cast.visit_counts = visit_counts
-    if cfg.engine == "cuda":
-        cast.march = march
-    return cast
+    return Cast(closest, occlude, occlude2, visit_counts=visit_counts,
+                march=None if plain or not data.nodes.is_cuda else march)

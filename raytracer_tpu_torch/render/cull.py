@@ -46,7 +46,7 @@ import torch
 from .. import raymath as rm
 from ..scene import RenderConfig
 from . import cuda_engine as ce
-from .cast import Hit
+from .cast import Cast, Hit
 from .cast_vjp import closest_hit, occlude2_detached, occlude_detached
 
 LANES = 128  # the JAX package's lane width: a tile is tile_rows * LANES rays
@@ -488,21 +488,16 @@ cull_occlude.launches = 0
 # ---------------------------------------------------------------------------
 
 def make_cull_cast(data: ce.CastData, cfg: RenderConfig,
-                   geo: Optional[torch.Tensor] = None):
-    """The engine's cast on the cull (``make_pallas_cast`` with
-    ``traversal="cull"`` under ``cast_vjp``'s chunked rules): ``cast(ro,
-    rd)`` through K4 (its exact_uv branch under ``edge_aware_grads``, with
-    the reparam rule over the packed rows ``geo``) with ``occlude`` through
-    K5 and ``occlude2`` as two K5 queries (``_pallas_chunked_occlude2``'s
-    fallback for a traversal without a fused kernel).  ``engine="torch"``
-    takes the plain versions."""
-    if cfg.engine == "cuda":
-        cast_k, occ_k = cull_cast, cull_occlude
-    elif cfg.engine == "torch":
-        cast_k, occ_k = cull_cast_reference, cull_occlude_reference
-    else:
-        raise ValueError(f"unknown engine {cfg.engine!r} "
-                         "(expected 'torch' or 'cuda')")
+                   geo: Optional[torch.Tensor] = None, *, plain: bool) -> Cast:
+    """The cull's :class:`Cast` (``make_pallas_cast`` with
+    ``traversal="cull"`` under ``cast_vjp``'s chunked rules): ``closest``
+    through K4 (its exact_uv branch under ``edge_aware_grads``, with the
+    reparam rule over the packed rows ``geo``), ``occlude`` through K5 and
+    ``occlude2`` as two K5 queries (``_pallas_chunked_occlude2``'s fallback
+    for a traversal without a fused kernel).  ``plain`` takes the plain
+    versions."""
+    cast_k, occ_k = ((cull_cast_reference, cull_occlude_reference) if plain
+                     else (cull_cast, cull_occlude))
     tile = tile_rows_of(cfg) * LANES
     tables = data.tables
 
@@ -532,7 +527,7 @@ def make_cull_cast(data: ce.CastData, cfg: RenderConfig,
         return (occlude_query(o1, d1, mt1, _data),
                 occlude_query(o2, d2, mt2, _data))
 
-    def cast(ro, rd):
+    def closest(ro, rd):
         return closest_hit(cast_query, ro, rd, data, geo)
 
     def occlude(ro, rd, max_t):
@@ -542,6 +537,4 @@ def make_cull_cast(data: ce.CastData, cfg: RenderConfig,
         return occlude2_detached(occlude2_query, o1, d1, mt1, o2, d2, mt2,
                                  data)
 
-    cast.occlude = occlude
-    cast.occlude2 = occlude2
-    return cast
+    return Cast(closest, occlude, occlude2)

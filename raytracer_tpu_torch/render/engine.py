@@ -56,7 +56,7 @@ from .. import raymath as rm
 from ..scene import Camera, RenderConfig, Scene
 from ..tracing import span
 from . import cuda_engine
-from .cast import CastFn, Hit, hit_shading_attrs
+from .cast import Cast, Hit, hit_shading_attrs
 from .cast_vjp import pack_reparam_geo
 from .cuda_engine import _use_walk, make_cuda_cast
 from .cull import make_cull_cast
@@ -163,7 +163,7 @@ def primary_wave(ray_o, ray_d) -> Wave:
                 pixel=torch.arange(R, device=dev))
 
 
-def process_round(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def process_round(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
                   cfg: RenderConfig, st: Wave, spawn: bool, band_tbl=None,
                   pixel_angle=None):
     """Cast and shade one wavefront round (``_radiance_dense``'s
@@ -273,7 +273,7 @@ def tile_scatter_add(acc, pixel, contrib):
 RoundHook = Callable[[int, Wave], None]
 
 
-def _radiance_dense(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def _radiance_dense(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
                     cfg: RenderConfig, ray_o, ray_d, pixel_angle=None,
                     on_round: Optional[RoundHook] = None):
     """Every round of the wavefront over the flat primary rays ``[R, 3]``.
@@ -366,7 +366,7 @@ def _radiance_tile_compacted(scene, geom, cast_fn, cfg, ray_o, ray_d,
     return acc, dropped + dropped_hits.to(torch.int32)
 
 
-def radiance(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def radiance(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
              cfg: RenderConfig, ray_o, ray_d, pixel_angle=None,
              on_round: Optional[RoundHook] = None):
     """Accumulated RGBA radiance ``[R, 4]`` of flat primary rays ``[R, 3]``
@@ -386,7 +386,7 @@ def radiance(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
                            pixel_angle, on_round)
 
 
-def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
                       cfg: RenderConfig, ray_o, ray_d, pixel_angle=None):
     """Radiance of a ray batch, clamped to <= 1 like the canvas write.
     Returns ``(img, dropped)``: a nonzero ``dropped`` means a queue or tile
@@ -396,7 +396,7 @@ def render_rays_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
     return clamp_frame(acc).reshape(ray_o.shape[:-1] + (4,)), dropped
 
 
-def render_rays(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def render_rays(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
                 cfg: RenderConfig, ray_o, ray_d, pixel_angle=None):
     """:func:`render_rays_stats` without the drop count (the JAX
     package's ``render_rays``): the row blocks of the sharded renders
@@ -497,48 +497,45 @@ def clear_prepared() -> None:
 
 
 def make_cast(scene: Scene, geom: WorldGeometry, cfg: RenderConfig,
-              aux=None) -> CastFn:
-    """The engine's cast (``raytracer_tpu/render/engine.py`` ``make_cast``)
-    over the tables ``aux`` of :func:`prepare_cast` (built here when None)
-    for ``cfg.engine`` (``"cuda"`` kernels or the ``"torch"`` plain
-    versions): ``pallas_kernel="mxu"`` takes the MXU cast (K6; no shadow
-    queries), ``"scalar"`` the LBVH walk (K1-K3) or, by
-    ``pallas_traversal``, the candidate-list cull (K4/K5).  Under
-    ``edge_aware_grads`` the closest-hit cast takes the reparam rule over
-    the packed rows of ``geom`` (its graph reaches ``scene.verts``); the
-    kernels' tables stay out of every graph."""
+              aux=None) -> Cast:
+    """The engine's :class:`Cast` (``raytracer_tpu/render/engine.py``
+    ``make_cast``) over the tables ``aux`` of :func:`prepare_cast` (built
+    here when None), and the one place that picks each query's kernel:
+    the MXU cast (K6) for ``pallas_kernel="mxu"``, else the LBVH walk
+    (K1-K3, the march) or, by ``pallas_traversal``, the cull (K4/K5),
+    each through the ``"cuda"`` kernels or the ``"torch"`` plain versions
+    (``cfg.engine``).  Under ``edge_aware_grads`` the closest hit takes the
+    reparam rule over the packed rows of ``geom``.  Each query but
+    ``march`` (in the caller's ``rt.march``) runs in an ``rt.cast`` span."""
+    if cfg.engine not in ("cuda", "torch"):
+        raise ValueError(f"unknown engine {cfg.engine!r} "
+                         "(expected 'torch' or 'cuda')")
     if aux is None:
         aux = prepare_cast(scene, geom, cfg)
     geo = pack_reparam_geo(geom) if cfg.edge_aware_grads else None
     if cfg.pallas_kernel == "mxu":
-        cast = make_mxu_cast(aux, cfg, geo)
+        make = make_mxu_cast
     elif _use_walk(cfg, scene.inst_pos.shape[0]):
-        cast = make_cuda_cast(aux, cfg, geo)
+        make = make_cuda_cast
     else:
-        cast = make_cull_cast(aux, cfg, geo)
-    return _cast_spans(cast)
+        make = make_cull_cast
+    cast = make(aux, cfg, geo, plain=cfg.engine == "torch")
+    return dataclasses.replace(
+        cast, closest=_in_cast_span(cast.closest),
+        occlude=_in_cast_span(cast.occlude),
+        occlude2=_in_cast_span(cast.occlude2),
+        visit_counts=_in_cast_span(cast.visit_counts))
 
 
-def _in_span(name: str, fn):
+def _in_cast_span(fn):
+    if fn is None:
+        return None
+
     def run(*args):
-        with span(name):
+        with span("rt.cast"):
             return fn(*args)
 
     return run
-
-
-def _cast_spans(cast) -> CastFn:
-    """``cast`` with its closest hit and each query attribute it has
-    (``occlude``, ``occlude2``, ``visit_counts``) in an ``rt.cast`` span;
-    its ``march`` (the LBVH walk's) as it is, in the caller's ``rt.march``."""
-    traced = _in_span("rt.cast", cast)
-    for name in ("occlude", "occlude2", "visit_counts"):
-        fn = getattr(cast, name, None)
-        if fn is not None:
-            setattr(traced, name, _in_span("rt.cast", fn))
-    if getattr(cast, "march", None) is not None:
-        traced.march = cast.march
-    return traced
 
 
 def _to_blocks(x, hp, wp):
@@ -593,7 +590,7 @@ def spp_jitter_grid(spp: int, width: int, height: int, device=None):
     return offs, shift
 
 
-def _render_one_stats(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def _render_one_stats(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
                       camera: Camera, cfg: RenderConfig, jitter, lane=None):
     """One sample frame ``[H, W, 4]`` and its drop count.  ``jitter``
     ``[H, W, 2]`` or None (the pixel corners); ``lane`` (the kept tiles of
@@ -733,7 +730,7 @@ def render_frame_sum(scene: Scene, camera: Camera, cfg: RenderConfig, offs,
 
 
 @torch.no_grad()
-def _probe_tile_occupancy(cast_fn: CastFn, camera: Camera, cfg: RenderConfig,
+def _probe_tile_occupancy(cast_fn: Cast, camera: Camera, cfg: RenderConfig,
                           scene: Optional[Scene] = None,
                           geom: Optional[WorldGeometry] = None):
     """Per-tile occupancy of the pixel-centre frame: ``(occ [T], dil [T],
@@ -812,7 +809,7 @@ def auto_static_tile_cap(scene: Scene, camera: Camera,
 
 
 @torch.no_grad()
-def _static_tile_lanes(cast_fn: CastFn, camera: Camera, cfg: RenderConfig):
+def _static_tile_lanes(cast_fn: Cast, camera: Camera, cfg: RenderConfig):
     """The kept tiles of the spp sweep from one probe of the pixel-centre
     frame: ``Ct = ceil(T * static_tile_cap)`` tiles (at least 1, at most
     ``T``), tiles with a probe hit first, then their one-ring dilation

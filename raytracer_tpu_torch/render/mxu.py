@@ -42,7 +42,7 @@ import torch
 from .. import raymath as rm
 from ..scene import RenderConfig, Scene
 from . import cuda_engine as ce
-from .cast import Hit
+from .cast import Cast, Hit, occlude_by_closest
 from .cast_vjp import closest_hit
 from .cull import LANES, CullLayout, tile_candidates
 from .geometry import WorldGeometry
@@ -340,17 +340,13 @@ mxu_cast.launches = 0
 
 
 def make_mxu_cast(data: MxuData, cfg: RenderConfig,
-                  geo: Optional[torch.Tensor] = None):
-    """The engine's MXU cast (``engine.make_cast``'s ``pallas_kernel="mxu"``
-    branch: ``detach_visibility`` over the ray-chunked kernel, or
-    ``reparam_cast`` over the packed rows ``geo`` under
-    ``edge_aware_grads``).  The hit has no normal and no material, and the
-    cast has no ``occlude``/``occlude2`` queries.  ``engine="torch"`` takes
-    the plain version."""
-    if cfg.engine not in ("cuda", "torch"):
-        raise ValueError(f"unknown engine {cfg.engine!r} "
-                         "(expected 'torch' or 'cuda')")
-    plain = cfg.engine == "torch"
+                  geo: Optional[torch.Tensor] = None, *, plain: bool) -> Cast:
+    """The MXU cast's :class:`Cast` (``engine.make_cast``'s
+    ``pallas_kernel="mxu"`` branch: ``detach_visibility`` over the
+    ray-chunked kernel, or ``reparam_cast`` over the packed rows ``geo``
+    under ``edge_aware_grads``).  The hit has no normal and no material,
+    and ``occlude`` is the closest hit's (:func:`occlude_by_closest`); it
+    has no ``occlude2``.  ``plain`` takes the plain version."""
 
     def query(ro, rd, _data):
         lay = CullLayout.of(ro.shape[0], cfg.pallas_ray_chunk, data.tile)
@@ -369,7 +365,7 @@ def make_mxu_cast(data: MxuData, cfg: RenderConfig,
                    wtri=torch.clamp(lay.unpad(idf), min=0.0).to(torch.int32),
                    uv=torch.stack([lay.unpad(u), lay.unpad(v)], -1))
 
-    def cast(ro, rd):
+    def closest(ro, rd):
         return closest_hit(query, ro, rd, data, geo, with_attrs=False)
 
-    return cast
+    return Cast(closest, occlude_by_closest(closest))

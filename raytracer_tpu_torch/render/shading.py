@@ -6,15 +6,15 @@ Ka*ambience + sum over lights of phong(...)``.  In a world without a
 refractive material each light's shadow is one any-hit query: with exactly
 1 point + 1 directional light, ``fused_shadows`` on and a cast that has
 ``occlude2``, one call answers both queries (K2's fused walk, or two K5
-queries on the cull); otherwise each light sends its own query (K3 or K5),
-or a closest-hit cast where the cast has no ``occlude`` (the MXU cast).
+queries on the cull); otherwise each light sends its own ``occlude`` query
+(K3, K5, or the MXU cast's closest hit).
 With a refractive material the shadow ray marches (``_march_shadow``,
 reference light.cu:30-61): each step takes the closest hit (K1, K4 or K6);
 an opaque blocker before the light kills it, a transmissive one passes it
 on, attenuated by ``Kt^segment`` where the ray leaves the blocker
 (``n.d > 0``), for at most ``shadow_steps`` steps.  On the LBVH walk with
 no input that requires grad the whole march is one kernel launch
-(``cast.march``); else a loop of torch ops (:func:`march_steps`).  With
+(``Cast.march``); else a loop of torch ops (:func:`march_steps`).  With
 ``texture_mapping`` the nearest atlas texel (``sample_atlas``) replaces
 ``Kd`` on textured triangles.
 
@@ -41,7 +41,7 @@ import torch
 from .. import raymath as rm
 from ..scene import Materials, RenderConfig, Scene
 from ..tracing import span
-from .cast import CastFn, Hit, hit_shading_attrs
+from .cast import Cast, Hit, hit_shading_attrs
 from .geometry import WorldGeometry
 
 
@@ -216,13 +216,13 @@ def shadow_attenuation(kt, dist):
     return rm.safe_pow(kt, dist[..., None])
 
 
-def _use_fused(scene: Scene, cfg: RenderConfig, cast_fn: CastFn) -> bool:
+def _use_fused(scene: Scene, cfg: RenderConfig, cast_fn: Cast) -> bool:
     """The JAX package's condition for the fused two-light round: it needs
     a cast with an ``occlude2`` query."""
     return (cfg.fused_shadows and not cfg.any_refractive
             and scene.lights.point_pos.shape[0] == 1
             and scene.lights.dir_dir.shape[0] == 1
-            and getattr(cast_fn, "occlude2", None) is not None)
+            and cast_fn.occlude2 is not None)
 
 
 def shadow_rays(scene: Scene, hit_pos, active):
@@ -240,32 +240,24 @@ def shadow_rays(scene: Scene, hit_pos, active):
             o_park + rm.THRESHOLD * dir2, dir2)
 
 
-def march_shadow(cast_fn: CastFn, origin, dir_unit, max_t, light_col,
-                 active):
+def march_shadow(cast_fn: Cast, origin, dir_unit, max_t, light_col, active):
     """The light arriving at ``origin`` [R,3] from ``light_col`` along
     ``dir_unit``: the opaque fast path of ``_march_shadow``, one any-hit
-    query (K3 or K5) -- a blocker within ``max_t`` kills the light.  A cast
-    without ``occlude`` answers with its closest hit instead (``valid & t <=
-    max_t``, the closest hit being minimal).  Inactive lanes park at 1e30
-    like the fused round's."""
+    query (``Cast.occlude``) -- a blocker within ``max_t`` kills the light.
+    Inactive lanes park at 1e30 like the fused round's."""
     dir_unit = dir_unit.expand(origin.shape)
 
     def query():
         o = (torch.where(active[..., None], origin, 1e30)
              + rm.THRESHOLD * dir_unit)
-        occ = getattr(cast_fn, "occlude", None)
-        if occ is not None:
-            return (active & occ(o, dir_unit, max_t),)
-        hit = cast_fn(o, dir_unit)
-        t_fin = torch.where(hit.valid, hit.t, 1.0)
-        return (active & hit.valid & (t_fin <= max_t),)
+        return (active & cast_fn.occlude(o, dir_unit, max_t),)
 
     (blocked,) = shadow_masks(query)
     lit = light_col.expand(origin.shape[:-1] + (4,))
     return torch.where(blocked[..., None], 0.0, lit)
 
 
-def march_steps(cast_fn: CastFn, geom: WorldGeometry, mats: Materials,
+def march_steps(cast_fn: Cast, geom: WorldGeometry, mats: Materials,
                 origin, dir_unit, max_t, light_col, active, steps: int,
                 early_exit: bool):
     """The transmissive shadow march as a loop of whole-queue torch ops
@@ -322,34 +314,33 @@ def _requires_grad(*xs) -> bool:
         isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
 
-def march_transmissive(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def march_transmissive(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
                        cfg: RenderConfig, origin, dir_unit, max_t, light_col,
                        active):
     """The transmissive shadow march of one light, in one ``rt.march``
     span: the cast's own ``march`` (the LBVH walk's on the card: one kernel
-    launch) where the cast has one, the rays are CUDA tensors and no input
-    of the march requires grad (the rays, ``max_t``, the light, ``kt`` or
-    the world triangles the reparam rule differentiates), else
+    launch) where the cast has one and no input of the march requires grad
+    (the rays, ``max_t``, the light, ``kt`` or the world triangles the
+    reparam rule differentiates), else
     :func:`march_steps` over ``cast_fn``, whose casts (``rt.cast``) and
     early exits (``rt.sync``) nest in the span and whose graph the backward
     takes.  The kernel's path opens an empty ``rt.march_fused`` span first:
     it marks the path, and the launch's host time stays in ``rt.march``'s
     own."""
     with span("rt.march"):
-        march = getattr(cast_fn, "march", None)
-        if march is not None and origin.is_cuda and not _requires_grad(
+        if cast_fn.march is not None and not _requires_grad(
                 origin, dir_unit, max_t, light_col, scene.materials.kt,
                 geom.a, geom.b, geom.c, geom.na, geom.nb, geom.nc):
             with span("rt.march_fused"):
                 pass
-            return march(origin, dir_unit, max_t, light_col, active,
-                         scene.materials.kt, cfg.shadow_steps)
+            return cast_fn.march(origin, dir_unit, max_t, light_col, active,
+                                 scene.materials.kt, cfg.shadow_steps)
         return march_steps(cast_fn, geom, scene.materials, origin, dir_unit,
                            max_t, light_col, active, cfg.shadow_steps,
                            cfg.early_exit)
 
 
-def _shadowed(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def _shadowed(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
               cfg: RenderConfig, origin, dir_unit, max_t, light_col, active):
     """``_march_shadow``: one any-hit query where no material transmits,
     else the march."""
@@ -360,7 +351,7 @@ def _shadowed(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
                               max_t, light_col, active)
 
 
-def illuminate(scene: Scene, geom: WorldGeometry, cast_fn: CastFn,
+def illuminate(scene: Scene, geom: WorldGeometry, cast_fn: Cast,
                cfg: RenderConfig, ray_o, ray_d, hit: Hit, normal,
                rmats: Materials, active):
     """Local shading at a hit point (reference phong.cu:40-67): the fused

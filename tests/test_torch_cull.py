@@ -49,6 +49,7 @@ from raytracer_tpu.scene import device_scene
 from raytracer_tpu_torch import cli, convert, diff, tree
 from raytracer_tpu_torch.render import cuda_engine as ce
 from raytracer_tpu_torch.render import cull, geometry, shading
+from raytracer_tpu_torch.render.cast import Cast, occlude_by_closest
 from raytracer_tpu_torch.render.engine import make_cast, render_frame
 
 torch.set_num_threads(2)
@@ -219,7 +220,7 @@ def test_cull_cast_matches_pallas(world, tables, rays):
     o, d = RAYS[rays](world)
     jh = jcast_vjp._pallas_chunked_cast(jcfg, jnp.asarray(o), jnp.asarray(d),
                                         jaux)
-    th = cull.make_cull_cast(data, cfg.replace(engine="torch"))(
+    th = cull.make_cull_cast(data, cfg, plain=True)(
         torch.from_numpy(o), torch.from_numpy(d))
 
     jv = np.asarray(jh.valid)
@@ -266,7 +267,7 @@ def test_cull_occlude_matches_pallas(world, tables, max_t):
     mt = _max_ts(o.shape[0], max_t)
     j = np.asarray(jcast_vjp._pallas_chunked_occlude(
         jcfg, jnp.asarray(o), jnp.asarray(d), jnp.asarray(mt), jaux))
-    cast = cull.make_cull_cast(data, cfg.replace(engine="torch"))
+    cast = cull.make_cull_cast(data, cfg, plain=True)
     blk = cast.occlude(torch.from_numpy(o), torch.from_numpy(d),
                        torch.from_numpy(mt))
     assert blk.dtype == torch.bool and 0 < int(blk.sum()) < blk.numel()
@@ -298,14 +299,12 @@ def test_wrappers_check_lists(world):
 
 
 def test_march_shadow_without_occlude_equals_occlude(world):
-    """``march_shadow`` on a cast without ``occlude`` (a closest hit within
-    max_t) gives the any-hit query's light, and the fused round needs an
-    ``occlude2``."""
+    """``march_shadow`` on a cast without an any-hit kernel (its
+    ``occlude`` a closest hit within max_t, ``occlude_by_closest``) gives
+    the any-hit query's light, and the fused round needs an ``occlude2``."""
     _, data, _, cfg = _casts(world, "box")
-    cast = cull.make_cull_cast(data, cfg.replace(engine="torch"))
-
-    def bare(ro, rd):
-        return cast(ro, rd)
+    cast = cull.make_cull_cast(data, cfg, plain=True)
+    bare = Cast(cast.closest, occlude_by_closest(cast.closest))
 
     po, pd = (torch.from_numpy(x) for x in _primary(world, 48, 32))
     hit = cast(po, pd)
@@ -913,7 +912,7 @@ def test_cull_frame_equals_lbvh_frame(world, frames):
 def test_cull_casts_launch_no_walk_kernel(world):
     cfg = world["jw"].config.replace(engine="cuda", width=16, height=16)
     cast = make_cast(world["scene"], world["geom"], cfg)
-    assert hasattr(cast, "occlude") and hasattr(cast, "occlude2")
+    assert cast.occlude2 is not None and cast.visit_counts is None
     walk = (ce.bvh_cast, ce.bvh_occlude, ce.bvh_occlude2)
     before = [k.launches for k in walk]
     render_frame(world["scene"], convert.camera_from_numpy(

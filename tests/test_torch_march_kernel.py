@@ -59,7 +59,7 @@ def mixed():
     cam = rtt.to_device(scale_camera(w.camera, 1920, w.config.width), dev)
     geom = expand_geometry(scene)
     data = ce.prepare_cast(scene, geom, cfg)
-    cast = ce.make_cuda_cast(data, cfg)
+    cast = ce.make_cuda_cast(data, cfg, plain=False)
     ro, rd, _, _ = _frame_rays_blocked(cam, cfg)
     with torch.no_grad():
         hit = cast(ro, rd)

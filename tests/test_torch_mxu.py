@@ -133,7 +133,7 @@ def test_mxu_cast_matches_jax(world, rays):
     jh = world["jcast"](jnp.asarray(o), jnp.asarray(d))
     cast = make_cast(world["scene"], world["geom"],
                      world["cfg"].replace(engine="torch"))
-    assert not hasattr(cast, "occlude") and not hasattr(cast, "occlude2")
+    assert cast.occlude2 is None and cast.march is None
     th = cast(torch.from_numpy(o), torch.from_numpy(d))
     assert th.normal is None and th.mat is None
     jv = np.asarray(jh.valid)

@@ -95,13 +95,22 @@ Phases, each failing loudly (nonzero exit) on any mismatch:
    shadow queries identical to their plain versions, and the per-light
    frame (fused_shadows=False, K3) equal to the fused one bit for bit;
    frame ms (median of 5), device busy, idle share and kernels per frame
-   at both sizes (torch.profiler, 3 frames);
+   at both sizes (torch.profiler, 3 frames); at both sizes each round's
+   queue shaded through the shading kernels (``shade_rays`` and
+   ``shade_phong``, their counters reset just before: one launch each)
+   and through ``process_round``'s torch ops on the same cast: the
+   contributions and the children's attenuation within 4 float32 steps
+   (``powf``'s last place), the children's rays, flags and pixels equal;
+   round 0's two launches timed (median of 5, and device ms) beside their
+   byte bounds, the round through the torch ops once, and the kernels'
+   launches in the counted frame;
 20. terrain8_mixed (760 instances: a reflective and a refractive type:
    the compacted 2x stream and the transmissive shadow march through K1)
    the same way: K1 alone launched; at 640x480 K1 identical to its plain
    version on each later round's rays (the refracted rays that start
    inside a glass box and take its exit face counted) and on the first
-   two steps of the point light's march;
+   two steps of the point light's march; the shading kernels checked and
+   timed as in phase 19, around each light's fused march;
 21. the 1080p fwd+bwd step on both (materials with kr, kt and eta,
    lights, camera; zero target), counters reset just before: grads equal
    to the "torch" engine's at rtol 1e-4 / atol 1e-6, step ms (median of 3)
@@ -236,7 +245,11 @@ Each kernel's bound is the least time the card could take for its work at
 the main path's shapes (and, printed beside it, at 1920x1080): the larger
 of the bytes it must move (inputs read once, outputs written once) over
 3.35 TB/s and its FP32 operations over 67 TFLOP/s (the H100 SXM's
-published peaks at 700 W).  For the walks and the lists (K1-K5) the
+published peaks at 700 W).  The shading kernels' bound is bytes alone
+(their ~200 FP32 operations a lane and light are an order below): every
+input of a lane read once and every output written once, beyond its flag
+only where the lane is shaded (a medium's ``Kt`` only where it is
+inside one).  For the walks and the lists (K1-K5) the
 operations are what this run's rays reach, counted by the
 plain versions (``work=``: the nodes, boxes and triangles each ray's kernel
 walk tests); for K6, the live columns of each tile (its listed columns with
@@ -250,7 +263,8 @@ own; ``spp_launches``: its launches in each phase-26 cell;
 ``dist_launches``: its launches over the ranks in each phase 27-30 path;
 ``texture_launches``: in each phase-31 frame and step; ``ops_launches``:
 in each phase-32 probe, phase-33 CLI run, phase-35 orbit and phase-36
-interactive run and probe);
+interactive run and probe; the shading kernels' rows count their
+launches in phases 19-20 alone, so those four stay empty there);
 the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -281,6 +295,7 @@ WORLD_MIXED = os.path.join(WORLDS, "terrain8_mixed.json")
 SOURCE = "raytracer_tpu_torch/csrc/bvh_kernels.cu"
 SOURCE_CULL = "raytracer_tpu_torch/csrc/cull_kernels.cu"
 SOURCE_MXU = "raytracer_tpu_torch/csrc/mxu_kernel.cu"
+SOURCE_SHADE = "raytracer_tpu_torch/csrc/shade_kernels.cu"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
 # FP32 operations (arithmetic and comparisons) of one unit of work,
@@ -306,6 +321,9 @@ STEP_REPS = 3  # ... of fwd+bwd steps
 PLAIN_REPS = 1
 ATOL_FRAME = 1e-5
 MARCH_ULPS = 2  # bvh_march against the loop: only powf may round otherwise
+# the shading kernels against process_round's torch ops: only powf (the
+# specular term, Kt^t inside a medium) may round otherwise, in its last place
+SHADE_ULPS = 4
 # cuda vs torch engine gradients: the hits are identical, so only the
 # order of the atomic sums in the gather backward differs
 RTOL_GRAD, ATOL_GRAD = 1e-4, 1e-6
@@ -1398,6 +1416,134 @@ def _march_checks(label, scene, geom, data, cfg, waves):
     return rec
 
 
+def _shade_bytes(w, rs, shaded, in_medium, n_query, refractive):
+    """The least bytes of round ``w``'s ``shade_rays`` and ``shade_phong``
+    launches (``rs``: ``shade_rays``' outputs; ``shaded`` and
+    ``in_medium``: the lanes shaded, and of them those inside a medium;
+    ``refractive``: a glass world, whose rays' attenuation is read):
+    each input read once and each output written once; ``shade_phong``
+    reads a lane's hit beyond its flag only where the lane is shaded, one
+    blocker flag a light, or the march's light."""
+    R = w.o.shape[0]
+    rays = R * (12 + 12 + 1 + 1 + 4) + _nbytes(rs.hit_pos, rs.h_valid,
+                                               rs.ldir, rs.ldist)
+    if rs.qorig is not None:
+        rays += _nbytes(rs.qorig)
+    if refractive:  # atten in, atten_eff out
+        rays += R * (16 + 1) + in_medium * 4 + _nbytes(rs.atten_eff)
+    per_light = 1 if rs.qorig is not None else 16
+    phong = R * (1 + 16) + shaded * (12 + 12 + 4 + 12 + 16
+                                     + per_light * n_query)
+    return rays, phong
+
+
+def _shade_checks(label, scene, cfg, waves):
+    """The round's shading kernels (``fused_shading.shade_rays`` and
+    ``shade_phong``, around the shadow queries) against the torch ops of
+    ``engine.process_round`` on each round's queue, the same cast for
+    both: contributions and children's attenuation within ``SHADE_ULPS``
+    float32 steps, the children's rays, flags and pixels equal, the
+    counters reset just before the kernels' round and moved once each;
+    round 0's two launches timed beside their byte bounds, and its round
+    (cast, shading, queries) through the kernels and, once, through the
+    torch ops.  ``waves``: the rounds' queues (``radiance``'s
+    ``on_round``)."""
+    from raytracer_tpu_torch.probe_kernels import float32_steps
+    from raytracer_tpu_torch.render import engine as eng
+    from raytracer_tpu_torch.render import fused_shading as fs
+    from raytracer_tpu_torch.render.geometry import expand_geometry
+
+    geom = expand_geometry(scene)
+    cast = eng.make_cast(scene, geom, cfg)
+    plain = cfg.replace(engine="torch")  # the torch ops on the same cast
+    n_query = (scene.lights.point_pos.shape[0]
+               + scene.lights.dir_dir.shape[0])
+    rec = {"ulps": 0, "contrib_abs_err": 0.0, "atten_abs_err": 0.0,
+           "rounds": []}
+    with torch.no_grad():
+        for i, w in enumerate(waves):
+            spawn = i < len(waves) - 1
+            fs.shade_rays.launches = fs.shade_phong.launches = 0
+            contrib, kids = eng.process_round(scene, geom, cast, cfg, w,
+                                              spawn)
+            torch.cuda.synchronize()
+            n = (fs.shade_rays.launches, fs.shade_phong.launches)
+            contrib_p, kids_p = eng.process_round(scene, geom, cast, plain,
+                                                  w, spawn)
+            torch.cuda.synchronize()
+            moved = (fs.shade_rays.launches, fs.shade_phong.launches) != n
+            ulps = float32_steps(contrib, contrib_p)
+            same = [True]
+            if spawn:
+                ulps = max(ulps, float32_steps(kids.atten, kids_p.atten))
+                same = [torch.equal(getattr(kids, f), getattr(kids_p, f))
+                        for f in ("o", "d", "in_obj", "active", "pixel")]
+                rec["atten_abs_err"] = max(rec["atten_abs_err"], float(
+                    (kids.atten - kids_p.atten).abs().max()))
+            if (n != (1, 1) or moved or ulps > SHADE_ULPS or not all(same)
+                    or not float(contrib_p.abs().max()) > 0.0):
+                raise AssertionError(
+                    f"{label} round {i}: the shading kernels {ulps} float32 "
+                    f"steps off the torch ops, children equal {same}, "
+                    f"launches {n}, the torch ops' launched them: {moved}")
+            rec["ulps"] = max(rec["ulps"], ulps)
+            rec["contrib_abs_err"] = max(rec["contrib_abs_err"], float(
+                (contrib - contrib_p).abs().max()))
+            rec["rounds"].append({
+                "lanes": w.o.shape[0], "ulps": ulps,
+                "values_off": int((contrib != contrib_p).sum())})
+            if i:
+                continue
+            # round 0's launches, as shade_round makes them
+            hit = cast(torch.where(w.active[:, None], w.o, 1e30), w.d)
+            how = fs.mode(scene, cfg, cast)
+            sc = fs.scene_arg(scene, w.o.device)
+
+            def rays():
+                return fs.shade_rays(
+                    sc, w.o, w.d, w.atten, w.in_obj, w.active, hit.valid,
+                    hit.t, hit.mat, queries=how != "march",
+                    refractive=cfg.any_refractive)
+
+            rs = rays()
+            shadow = fs.shadow_queries(scene, geom, cast, cfg, rs, how)
+
+            def phong():
+                return fs.shade_phong(sc, w.d, hit.normal, hit.mat,
+                                      rs.h_valid, rs.hit_pos, rs.atten_eff,
+                                      shadow, march=how == "march")
+
+            shaded = int(rs.h_valid.sum())
+            b_rays, b_phong = _shade_bytes(
+                w, rs, shaded, int((rs.h_valid & w.in_obj).sum()), n_query,
+                cfg.any_refractive)
+            rec.update(
+                mode=how, lanes=w.o.shape[0], shaded=shaded,
+                rays_ms=_ms(rays), rays_device_ms=_device_ms(rays),
+                phong_ms=_ms(phong), phong_device_ms=_device_ms(phong),
+                round_ms=_ms(lambda: eng.process_round(
+                    scene, geom, cast, cfg, w, False)),
+                round_plain_ms=_timed(lambda: eng.process_round(
+                    scene, geom, cast, plain, w, False))[1],
+                rays_bound=_bound(b_rays, 0), phong_bound=_bound(b_phong, 0))
+            rec["rays_bound"]["rays"] = rec["phong_bound"]["rays"] = rec[
+                "lanes"]
+    print(f"{label}: shade_rays/shade_phong == the torch ops within "
+          f"{rec['ulps']} float32 steps on {len(rec['rounds'])} rounds "
+          f"({rec['mode']}; values off: "
+          f"{[r['values_off'] for r in rec['rounds']]}); round 0, "
+          f"{rec['shaded']} of {rec['lanes']} lanes shaded: shade_rays "
+          f"{rec['rays_ms']:.4f} ms (device {rec['rays_device_ms']:.4f}, "
+          f"bound {rec['rays_bound']['bound_ms']:.4f}, "
+          f"{rec['rays_bound']['bytes']} B), shade_phong "
+          f"{rec['phong_ms']:.4f} ms (device {rec['phong_device_ms']:.4f}, "
+          f"bound {rec['phong_bound']['bound_ms']:.4f}, "
+          f"{rec['phong_bound']['bytes']} B); the round {rec['round_ms']:.3f}"
+          f" ms through the kernels, {rec['round_plain_ms']:.3f} ms through "
+          "the torch ops once")
+    return rec
+
+
 def _bounces(dev, smi):
     """Phases 19-22: the bounce rounds.  terrain8_stress (reflective: the
     pixel-aligned stream, K1 and K2 in every round) and terrain8_mixed
@@ -1416,7 +1562,9 @@ def _bounces(dev, smi):
     from raytracer_tpu_torch.render.geometry import expand_geometry
     from raytracer_tpu_torch.render.shading import shadow_rays
 
-    out = {"worlds": {}, "steps": {}, "synth": {}, "march": {}}
+    from raytracer_tpu_torch.render import fused_shading as fs
+
+    out = {"worlds": {}, "steps": {}, "synth": {}, "march": {}, "shade": {}}
     main, big = SIZES[0], SIZES[-1]
     inf = float("inf")
 
@@ -1474,17 +1622,27 @@ def _bounces(dev, smi):
         for s in SIZES:
             key = f"{s[0]}x{s[1]}"
             c = cfg.replace(width=s[0], height=s[1])
+            fs.shade_rays.launches = fs.shade_phong.launches = 0
             (img, stats), counts = _counted(
                 f"{name} {key}", lambda: eng.render_frame_with_stats(
                     scene, cams[s], c), used_of[name])
+            shade_n = (fs.shade_rays.launches, fs.shade_phong.launches)
             waves, dropped = rounds(scene, cams[s], c)
             live = [int(w.active.sum()) for w in waves]
             if int(stats["dropped"]) != 0 or dropped != 0:
                 raise AssertionError(f"{name} {key}: dropped "
                                      f"{int(stats['dropped'])}")
+            if shade_n != (len(waves), len(waves)):
+                raise AssertionError(f"{name} {key}: the shading kernels "
+                                     f"launched {shade_n} times in "
+                                     f"{len(waves)} rounds")
             r = rec[key] = {"launches": counts, "live_rays": live,
                             "queue": [w.active.shape[0] for w in waves],
-                            "dropped": 0}
+                            "dropped": 0, "shade_launches": shade_n}
+            out["shade"][f"{name} {key}"] = _shade_checks(
+                f"{name} {key}", scene, c, waves)
+            out["shade"][f"{name} {key}"]["frame_launches"] = {
+                "shade_rays": shade_n[0], "shade_phong": shade_n[1]}
             if mixed:
                 out["march"][key] = _march_checks(f"{name} {key}", scene,
                                                   geom, data, c, waves)
@@ -3916,6 +4074,23 @@ def main(argv=None) -> int:
                             for m in report["bounces"]["march"].values())
     launches["bvh_march"] = report["bounces"]["march"][big_key][
         "frame_launches"]
+    # the shading kernels' rows: terrain8_stress, 2,073,600 lanes a 1080p
+    # round; the plain version is the round through the torch ops (its cast
+    # and queries included), which the two kernels replace together
+    shade = report["bounces"]["shade"]
+    for k in timing:
+        m = shade[f"terrain8_stress {k}"]
+        for key, part in (("ksr", "rays"), ("ksp", "phong")):
+            timing[k].update({f"{key}_ms": m[f"{part}_ms"],
+                              f"{key}_device_ms": m[f"{part}_device_ms"],
+                              f"{key}_plain_ms": m["round_plain_ms"]})
+        bounds_at[k]["shade_rays"] = m["rays_bound"]
+        bounds_at[k]["shade_phong"] = m["phong_bound"]
+    errs["shade_rays"] = max(m["atten_abs_err"] for m in shade.values())
+    errs["shade_phong"] = max(m["contrib_abs_err"] for m in shade.values())
+    for name in ("shade_rays", "shade_phong"):
+        launches[name] = shade[f"terrain8_stress {big_key}"][
+            "frame_launches"][name]
     print(f"bounce phases: {report['bounces']['seconds']:.1f} s")
     # ---- phases 23-26: spp > 1 ----------------------------------------------
     t_s = time.perf_counter()
@@ -3986,6 +4161,11 @@ def main(argv=None) -> int:
         # the fused march replaces no Pallas kernel: it fuses the loop of
         # _march_shadow with K1's walk (its launches: the mixed 1080p frame)
         ("bvh_march", SOURCE, tpu + "shading.py:78", "km"),
+        # the shading kernels replace no Pallas kernel: they fuse
+        # illuminate's glue and phong_term (their launches: the stress
+        # 1080p frame)
+        ("shade_rays", SOURCE_SHADE, tpu + "shading.py:200", "ksr"),
+        ("shade_phong", SOURCE_SHADE, tpu + "shading.py:185", "ksp"),
     ]
     # device ms = fixed + per_m * (rays in millions), fitted to the two sizes
     for name, _, _, key in rows:

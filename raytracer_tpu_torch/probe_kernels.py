@@ -150,9 +150,9 @@ def _times(fn, exact_calls=False):
 def _ptxas(log):
     """``{kernel: {"registers": n, "spill_bytes": n}}`` from nvcc's
     ``-Xptxas -v`` log, for the kernels whose name holds ``bvh_cast``,
-    ``bvh_occlude`` or ``cull_cast``; each with the 128-thread blocks an SM
-    holds by its registers (65,536 an SM, given out per warp in steps of
-    256)."""
+    ``bvh_occlude``, ``cull_cast`` or ``shade_``; each with the
+    128-thread blocks an SM holds by its registers (65,536 an SM, given
+    out per warp in steps of 256)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
@@ -161,7 +161,7 @@ def _ptxas(log):
             cur = m.group(1)
             continue
         if cur is None or not any(k in cur for k in (
-                "bvh_cast", "bvh_occlude", "cull_cast")):
+                "bvh_cast", "bvh_occlude", "cull_cast", "shade_")):
             continue
         rec = out.setdefault(cur, {"registers": None, "spill_bytes": 0})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",

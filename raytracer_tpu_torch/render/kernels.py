@@ -117,6 +117,9 @@ def library() -> ctypes.CDLL:
                         vp, vp, vp, vp, vp, vp, vp, ci, vp],
         "rt_mxu_workers": [ci],
         "rt_mxu_split": [],
+        # a round's shading around its shadow queries (shade_kernels.cu)
+        "rt_shade_rays": [vp] * 9 + [ci, ci] + [vp] * 7 + [ci, vp],
+        "rt_shade_phong": [vp] * 8 + [ci, ci, vp, ci, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

@@ -119,6 +119,12 @@ def shadow_masks(query: Callable[[], Tuple[torch.Tensor, ...]]
     return masks
 
 
+def tape_active() -> bool:
+    """Whether a per-sample checkpoint's :class:`MaskTape` records or
+    replays."""
+    return _TAPE is not None
+
+
 def _relu(x):
     """``max(x, 0)`` with JAX's 0.5 subgradient at ``x == 0``."""
     return torch.maximum(x, x.new_zeros(()))
